@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port's main path on one card and hold its kernels
+against their plain versions.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and ``nvcc``; builds the kernels from
+``wide_deep_tpu_torch/csrc`` itself (into ``build/kernels``).  Phases, one
+line each on stdout:
+
+0. the card's name and power limit (nvidia-smi), the kernels' build time;
+1. K1 (range scatter-add) at the production d8, d4 and d32-compact shapes,
+   K2 (window scatter-add) at the d16 shape, K3 (row write-back) on a
+   [10,000,128, 128] float32 table with sentinel uids: each against its
+   plain PyTorch version on the same inputs, with its time from CUDA events
+   beside the plain version's, one PyTorch library call's and the bound;
+2. the port's ``Trainer`` on the production config (conf/, batch 25600,
+   pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
+   5 steps on seeded synthetic batches; every step, each read on its own,
+   must launch K1 once at each of its three sites (d8, d4, d32 compact) and
+   K2 and K3 once each (a file batch whose d16 plan says ok=0 takes the
+   plan's plain branch instead, and its line says so), losses and params
+   must stay finite, touched d32 rows must change and an untouched one not;
+   then (2c, after the launch counts are read) torch.profiler over 3 more
+   steps: wall time, the device's busy share, the top kernels by device
+   time (the Chrome trace goes to build/step_trace.json);
+3. one JSON line describing the kernels, then the device line.
+
+Exits non-zero on any failure, and at once when there is no CUDA device.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BATCH = 25600
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_TOL = 2.0 ** -7           # one bfloat16 ulp, relative
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def median_ms(fn, reps=20, warmup=3):
+    import numpy as np
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
+                  in_bytes_per_el, extra_bytes, source, replaces):
+    """Hold one scatter kernel against its plain version and time it."""
+    import torch
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    gf, wf = got.float(), want.float()
+    err = (gf - wf).abs()
+    if out_dtype == torch.bfloat16:
+        tol = BF16_TOL * wf.abs() + 1e-6   # each rounds its f32 sum once
+        tol_text = "<= 1 bf16 ulp (2^-7 rel) + 1e-6"
+    else:
+        tol = 1e-5 * wf.abs() + 1e-5       # f32 sums in another order
+        tol_text = "<= 1e-5 rel + 1e-5"
+    ok = bool((err <= tol).all())
+    max_err = float(err.max()) if err.numel() else 0.0
+    out_es = torch.finfo(out_dtype).bits // 8
+    n_bytes = n_live * (4 + 4 + d * in_bytes_per_el) + rows * d * out_es \
+        + extra_bytes
+    b_ms, b_by = bound_ms(n_bytes, n_live * d)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": max_err,
+           "tolerance": tol_text, "ok": ok,
+           "ms": median_ms(fn), "plain_ms": median_ms(plain),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": median_ms(library)}
+    log(f"phase 1: {name}: max_abs_err {max_err:.3g} ({tol_text}) "
+        f"{'ok' if ok else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return row
+
+
+def phase_kernels(plan, batch, device):
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    groups = {g.dim: g for g in plan.groups}
+    rows_out = []
+
+    def t(key):
+        return torch.from_numpy(batch[key]).to(device)
+
+    def stream(prefix, dim, width, dtype, rows):
+        ids, perm = t(f"{prefix}_ids_d{dim}"), t(f"{prefix}_perm_d{dim}")
+        tiles = t(f"{prefix}_tiles_d{dim}")
+        g = torch.randn((ids.shape[0], width), generator=gen, device=device,
+                        dtype=torch.float32).to(dtype)
+        keep = (ids >= 0) & (ids < rows)
+        lib_ids = ids[keep].long()
+        lib_g = g[perm[keep].long()]
+        n_live = int(keep.sum())
+        return ids, perm, tiles, g, lib_ids, lib_g, n_live
+
+    src = "wide_deep_tpu_torch/csrc/range_scatter.cu"
+    rep = "wide_deep_tpu/ops/scatter.py:184"
+    for dim, in_dt in ((8, torch.bfloat16), (4, torch.bfloat16)):
+        g_ = groups[dim]
+        width = dim + 1                       # embedding + folded wide col
+        ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
+            "scat", dim, width, in_dt, g_.rows)
+        rows = g_.rows
+        rows_out.append(check_scatter(
+            f"K1 range_scatter_add d{dim}",
+            lambda: scatter.range_scatter_add(ids, perm, g, tiles, rows,
+                                              in_dt),
+            lambda: scatter.range_scatter_add_plain(ids, perm, g, rows,
+                                                    in_dt),
+            lambda: torch.zeros((rows, width), dtype=in_dt,
+                                device=device).index_add_(0, lib_ids, lib_g),
+            in_dt, n_live, width, rows, 2, tiles.numel() * 4, src, rep))
+    # d32 compact sum of the fused sparse optimizer: f32 in and out
+    ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
+        "sopt", 32, 32, torch.float32, BATCH * plan.group_packed_len[32])
+    n = ids.shape[0]
+    rows_out.append(check_scatter(
+        "K1 range_scatter_add d32 compact",
+        lambda: scatter.range_scatter_add(ids, perm, g, tiles, n,
+                                          torch.float32),
+        lambda: scatter.range_scatter_add_plain(ids, perm, g, n,
+                                                torch.float32),
+        lambda: torch.zeros((n, 32), dtype=torch.float32,
+                            device=device).index_add_(0, lib_ids, lib_g),
+        torch.float32, n_live, 32, n, 4, tiles.numel() * 4, src, rep))
+    # K2 at the d16 shape
+    g16 = groups[16]
+    if int(batch["wscat_ok_d16"][0]) != 1:
+        raise SystemExit("the synthetic d16 window plan overflowed (ok=0)")
+    ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
+        "wscat", 16, 17, torch.bfloat16, g16.rows)
+    wcap = scatter.window_cap(ids.shape[0], g16.rows)
+    rows_out.append(check_scatter(
+        "K2 window_scatter_add d16",
+        lambda: scatter.window_scatter_add(ids, perm, g, tiles, g16.rows,
+                                           wcap, torch.bfloat16),
+        lambda: scatter.window_scatter_add_plain(ids, perm, g, g16.rows,
+                                                 torch.bfloat16),
+        lambda: torch.zeros((g16.rows, 17), dtype=torch.bfloat16,
+                            device=device).index_add_(0, lib_ids, lib_g),
+        torch.bfloat16, n_live, 17, g16.rows, 2, tiles.numel() * 4,
+        "wide_deep_tpu_torch/csrc/window_scatter.cu",
+        "wide_deep_tpu/ops/scatter.py:355"))
+    del ids, perm, tiles, g, lib_ids, lib_g
+
+    # K3 on the production fused table, sentinel uids included
+    g32 = groups[32]
+    uids = t("sopt_uids_d32")
+    n = uids.shape[0]
+    valid = (uids >= 0) & (uids < g32.rows)
+    n_valid = int(valid.sum())
+    if n_valid == n:
+        raise SystemExit("expected sentinel uids in the compact plan")
+    table_k = torch.randn((g32.rows, rowdma.FUSED_WIDTH), generator=gen,
+                          device=device)
+    table_p = table_k.clone()
+    new_rows = torch.randn((n, rowdma.FUSED_WIDTH), generator=gen,
+                           device=device)
+    rowdma.rowdma_scatter_rows(table_k, uids, new_rows)
+    rowdma.rowdma_scatter_rows_plain(table_p, uids, new_rows)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(table_k, table_p))
+    max_err = float((table_k - table_p).abs().max())
+    del table_p
+    lib_uids = uids[valid].long()
+    lib_rows = new_rows[valid]
+    n_bytes = n * 4 + n_valid * rowdma.FUSED_WIDTH * 4 * 2
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    row = {"name": "K3 rowdma_scatter_rows d32", "route": "cuda",
+           "source": "wide_deep_tpu_torch/csrc/rowdma.cu",
+           "replaces": "wide_deep_tpu/ops/rowdma.py:80", "launches": 0,
+           "max_abs_err": max_err, "tolerance": "exact", "ok": exact,
+           "ms": median_ms(lambda: rowdma.rowdma_scatter_rows(
+               table_k, uids, new_rows)),
+           "plain_ms": median_ms(lambda: rowdma.rowdma_scatter_rows_plain(
+               table_k, uids, new_rows)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": median_ms(lambda: table_k.index_copy_(
+               0, lib_uids, lib_rows))}
+    log(f"phase 1: K3 rowdma_scatter_rows: {n} uids ({n - n_valid} "
+        f"sentinels), max_abs_err {max_err:.3g} (exact) "
+        f"{'ok' if exact else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if not exact:
+        raise SystemExit("K3 disagrees with its plain version")
+    del table_k, new_rows
+    rows_out.append(row)
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# K1's call sites on the production step, by the gradient width D they pass
+K1_SITES = {9: "d8", 5: "d4", 32: "d32 compact"}
+# launches each production step must add: K1 once per site, K2 (or the d16
+# plan's ok=0 branch) once, K3 once
+PER_STEP = dict({f"K1 {site}": 1 for site in K1_SITES.values()}, K3=1)
+
+
+def counts():
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    out = {"K1": scatter.range_launches, "K2": scatter.window_launches,
+           "K2_plain": scatter.window_plain_launches,
+           "K3": rowdma.rowdma_launches}
+    for d, n in scatter.range_launches_by_width.items():
+        out[f"K1 {K1_SITES.get(d, f'D={d}')}"] = n
+    return out
+
+
+def reset_counts():
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    scatter.range_launches = 0
+    scatter.range_launches_by_width.clear()
+    scatter.window_launches = 0
+    scatter.window_plain_launches = 0
+    rowdma.rowdma_launches = 0
+
+
+def delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def check_step(what, d):
+    """One production step's counter changes ``d``: K1 once at each of its
+    three sites and nowhere else, K2 or the d16 ok=0 branch once, K3 once."""
+    got = {k: d.get(k, 0) for k in PER_STEP}
+    if got != PER_STEP or d["K1"] != 3 or d["K2"] + d["K2_plain"] != 1:
+        raise SystemExit(f"{what} launched {d}")
+
+
+def phase_trainer(card, tmp):
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.optim import tree_items
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    config = Config(os.path.join(ROOT, "conf"))
+    tsv = os.path.join(tmp, "train.tsv")
+    testing.generate_ctr_tsv(config, tsv, 2 * BATCH, seed=0,
+                             hash_spread=None)
+    trainer = Trainer(config, "wide_deep", model_dir=tmp,
+                      overrides={"batch_size": BATCH, "pack_budget": 3},
+                      device="cuda")
+    t0 = time.time()
+    trainer.ensure_initialized()
+    torch.cuda.synchronize()
+    log(f"phase 2: Trainer initialised in {time.time() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+
+    # each file step's counter changes, read around the Trainer's own step
+    file_steps = []
+    train_batch = trainer.train_batch
+
+    def counted_step(batch):
+        c0 = counts()
+        loss = train_batch(batch)
+        file_steps.append(delta(c0, counts()))
+        return loss
+
+    trainer.train_batch = counted_step
+    reset_counts()                      # the main path starts here
+    # (a) two steps through train_file on the generated TSV
+    t0 = time.time()
+    trainer.train_file(tsv, max_steps=2)
+    torch.cuda.synchronize()
+    del trainer.train_batch
+    if len(file_steps) != 2 or trainer.global_step != 2:
+        raise SystemExit(f"train_file took {len(file_steps)} steps")
+    for i, d in enumerate(file_steps):
+        check_step(f"file step {i}", d)
+    file_counts = counts()
+    file_losses = [float(x) for x in trainer.losses]
+    log(f"phase 2a: train_file 2 steps in {time.time() - t0:.1f} s, losses "
+        f"{file_losses}, launches per step {file_steps}"
+        + (f" (d16 ok=0 on {file_counts['K2_plain']} batch(es): the plan's "
+           f"plain branch)" if file_counts["K2_plain"] else ""))
+
+    # (b) five steps on seeded synthetic batches
+    rng = np.random.default_rng(1)
+    table = trainer.params["dnn"]["embed"]["d32"]
+    step_ms, losses = [], []
+    for i in range(5):
+        batch = testing.synthetic_batch(trainer.plan, BATCH, rng)
+        if int(batch["wscat_ok_d16"][0]) != 1:
+            raise SystemExit(f"synthetic step {i}: d16 window plan ok=0")
+        # rows read with a non-zero pool weight get a non-zero gradient
+        live = batch["emb_ids_d32"][batch["emb_wts_d32"] > 0]
+        touched = torch.from_numpy(np.unique(live)[:256]).long()
+        untouched = int(np.setdiff1d(np.arange(1000),
+                                     batch["emb_ids_d32"])[0])
+        before = table[touched.to(table.device)].clone()
+        before_u = table[untouched].clone()
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        d = delta(c0, counts())
+        check_step(f"synthetic step {i}", d)
+        if d["K2"] != 1:
+            raise SystemExit(f"synthetic step {i}: d16 took the ok=0 branch")
+        losses.append(float(loss))
+        after = table[touched.to(table.device)]
+        if not bool((after[:, :32] != before[:, :32]).any(dim=1).all()):
+            raise SystemExit("a touched d32 row did not change")
+        if not torch.equal(table[untouched], before_u):
+            raise SystemExit("an untouched d32 row changed")
+    main_counts = counts()
+    all_losses = file_losses + losses
+    if not all(np.isfinite(all_losses)):
+        raise SystemExit(f"non-finite loss: {all_losses}")
+    for path, leaf in tree_items(trainer.params):
+        if not bool(torch.isfinite(leaf).all()):
+            raise SystemExit(f"non-finite param {'/'.join(map(str, path))}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 2b: 5 synthetic steps, median step "
+        f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}) at batch {BATCH} on {card}; losses {losses}; "
+        f"launches per step K1 3 (d8, d4, d32 compact 1 each), K2 1, K3 1; "
+        f"peak memory {peak:.2f} GB")
+    profile_steps(trainer, rng)
+    return main_counts, float(np.median(step_ms))
+
+
+def profile_steps(trainer, rng, n_steps=3):
+    """Where a step's time goes: torch.profiler over ``n_steps`` synthetic
+    steps (batches built before the window) -> one line with the wall time
+    per step, the device's busy share and the top operators by device
+    time.  Runs after the main path's launch counts were read."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wide_deep_tpu_torch import testing
+    batches = [testing.synthetic_batch(trainer.plan, BATCH, rng)
+               for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.train_batch(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # the kernels' own entries (device type CUDA), so no time counts twice
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
+    top = [f"{e.key[:60]} {dev_us(e) / 1e3 / n_steps:.3f} ms x"
+           f"{e.count // n_steps}" for e in kernels[:15] if dev_us(e) > 0]
+    log(f"phase 2c: profile of {n_steps} steps: {wall_ms:.2f} ms/step wall, "
+        f"device busy {busy_ms:.2f} ms/step "
+        f"({100 * busy_ms / wall_ms:.1f}%); top by device time: "
+        + ("; ".join(top) if top else "the profiler saw no device time"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    prof.export_chrome_trace(os.path.join(ROOT, "build", "step_trace.json"))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.ops import cuda_build
+    from wide_deep_tpu_torch.training.loop import build_training_plan
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    t0 = time.time()
+    built = cuda_build.build()
+    log(f"phase 0: built {sorted(built) or 'nothing (cached)'} in "
+        f"{time.time() - t0:.1f} s")
+
+    device = torch.device("cuda")
+    config = Config(os.path.join(ROOT, "conf"))
+    train_conf = dict(config.train, batch_size=BATCH, pack_budget=3)
+    plan = build_training_plan(config, train_conf, "wide_deep")
+    batch = testing.synthetic_batch(plan, BATCH, np.random.default_rng(0))
+    kernels = phase_kernels(plan, batch, device)
+    del batch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        main_counts, _ = phase_trainer(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in kernels:     # "K1 range_scatter_add d8" -> "K1 d8"
+        kernel, _, site = row["name"].split(" ", 2)
+        row["launches"] = main_counts.get(
+            f"K1 {site}" if kernel == "K1" else kernel, 0)
+    if not all(row["launches"] > 0 for row in kernels):
+        raise SystemExit(f"a kernel never ran on the main path: "
+                         f"{main_counts}")
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

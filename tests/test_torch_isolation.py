@@ -1,0 +1,99 @@
+"""The port stands alone: no module of wide_deep_tpu_torch/ and not
+chip_smoke.py imports JAX or the JAX package; entry points run on the card
+unless the caller asks for the CPU; no undefined names; chip_smoke.py fails
+without a card and without the rest of the repo."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from paths import REPO  # noqa: E402
+from test_lint import _undefined  # noqa: E402
+
+PKG = os.path.join(REPO, "wide_deep_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+
+def _port_files():
+    out = [SMOKE]
+    for dirpath, _, filenames in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in filenames
+                if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            root = mod.split(".")[0]
+            if root in ("jax", "jaxlib", "optax", "chex", "flax",
+                        "wide_deep_tpu"):
+                bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_port_has_no_undefined_names():
+    problems = []
+    for path in _port_files():
+        problems += _undefined(path)
+    assert not problems, "\n".join(problems)
+
+
+def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.models.joint import resolve_device
+    from wide_deep_tpu_torch.testing import write_small_conf
+    from wide_deep_tpu_torch.training.loop import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = Config(write_small_conf(str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(conf, "wide_deep")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    tr = Trainer(conf, "wide_deep", device="cpu")
+    assert tr.device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """No CUDA device: exit non-zero and print no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, SMOKE], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+
+
+def test_chip_smoke_needs_the_repo(tmp_path):
+    """Alone in a directory, the script fails even where a card is present
+    (here pretended, so that it gets past its CUDA check): it cannot import
+    the port, and prints no result."""
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    code = ("import runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=tmp_path, env=env, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "No module named 'wide_deep_tpu_torch'" in proc.stderr

@@ -1,0 +1,9 @@
+"""wide_deep_tpu_torch: the Wide & Deep system in PyTorch for one NVIDIA
+H100, beside the JAX package ``wide_deep_tpu`` it is held against.
+
+Entry points: ``training.loop.Trainer`` (single-device training),
+``models.joint.build_model``, and the hand-written CUDA kernels behind
+``ops.scatter`` (K1 range / K2 window scatter-add) and ``ops.rowdma`` (K3
+row write-back), built from ``csrc/`` at first use.  ``chip_smoke.py`` at
+the repo root drives them on the card.
+"""

@@ -1,0 +1,90 @@
+"""Dataset statistics feeding FeaturePlan decisions (the port's copy of the
+JAX package's ``features/analyze.py``, without plan-meta persistence).
+
+Device step cost is linear in the packed id-pool widths, and pool width is
+pack_budget x the number of multivalue slots.  ``pack_budget: auto`` in
+train.yaml scans the training data and uses the 95th-percentile value count.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+
+log = logging.getLogger("wide_deep_tpu_torch")
+
+DEFAULT_BUDGET = 3  # fallback when no multivalue data is visible
+
+
+def multivalue_occupancy(plan, data_path: str, max_rows: int = 20000):
+    """-> {feature: np.array of per-row value counts} over the first
+    ``max_rows`` well-formed rows (multivalue features only)."""
+    from wide_deep_tpu_torch.features.pipeline import list_files
+
+    counts = {name: [] for name, conf in plan.feature_conf.items()
+              if conf["type"] == "category" and conf.get("max_len", 1) > 1}
+    if not counts or not plan.multivalue:
+        return {}
+    col = plan.column_index
+    n_cols = len(plan.columns)
+    n_rows = 0
+    for path in list_files(data_path):
+        with open(path, errors="replace") as f:
+            for line in f:
+                cells = line.rstrip("\n").split("\t")
+                if len(cells) != n_cols:
+                    continue
+                n_rows += 1
+                for name, acc in counts.items():
+                    cell = cells[col[name]]
+                    acc.append(cell.count(",") + 1 if cell not in ("-", "")
+                               else 1)
+                if n_rows >= max_rows:
+                    break
+        if n_rows >= max_rows:
+            break
+    return {k: np.asarray(v) for k, v in counts.items() if v}
+
+
+def suggest_pack_budget(plan, data_path: str, max_rows: int = 20000,
+                        percentile: float = 95.0) -> int:
+    """p95 of per-row multivalue counts, the measured-occupancy pool size."""
+    occ = multivalue_occupancy(plan, data_path, max_rows)
+    if not occ:
+        return DEFAULT_BUDGET
+    p95s = [int(np.percentile(arr, percentile)) for arr in occ.values()]
+    max_len = max(plan.feature_conf[n].get("max_len", 1) for n in occ)
+    return int(np.clip(max(p95s), 1, max_len))
+
+
+def resolve_pack_budget(config, train_data: Optional[str] = None,
+                        raw=None) -> Optional[int]:
+    """train.yaml ``pack_budget`` -> int | None (None = plan default).
+
+    ``auto`` scans ``train_data`` (or the configured train_data) and logs
+    the choice; a missing dataset falls back to the default with a warning.
+    ``raw`` overrides the configured value (Trainer CLI overrides).
+    """
+    if raw is None:
+        raw = config.train.get("pack_budget")
+    if raw in (None, ""):
+        return None
+    if str(raw).lower() != "auto":
+        return int(raw)
+    from wide_deep_tpu_torch.features.plan import FeaturePlan
+    probe = FeaturePlan(config, fold=False, pack_budget=DEFAULT_BUDGET)
+    path = train_data or config.train.get("train_data")
+    if not path:
+        log.warning("pack_budget: auto requested but no train_data is "
+                    "configured; using default %d", DEFAULT_BUDGET)
+        return DEFAULT_BUDGET
+    try:
+        budget = suggest_pack_budget(probe, path)
+    except (OSError, FileNotFoundError) as e:
+        log.warning("pack_budget: auto requested but %s unreadable (%s); "
+                    "using default %d", path, e, DEFAULT_BUDGET)
+        return DEFAULT_BUDGET
+    log.info("pack_budget: auto -> %d (p95 occupancy of %s)", budget, path)
+    return budget

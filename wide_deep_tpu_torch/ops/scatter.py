@@ -1,0 +1,400 @@
+"""Scatter-add plans and the two hand-written scatter kernels (K1, K2).
+
+Host side (numpy, the port's own copies of wide_deep_tpu/ops/scatter.py's
+plan builders, bit-identical to them — tests/test_torch_scatter.py): a flat
+id stream is sorted once on the host and cut into tiles, so the device never
+sorts.  Device side:
+
+* **K1** ``range_scatter_add`` replaces the Pallas range kernel
+  (wide_deep_tpu/ops/scatter.py::range_scatter_add): the sum over a range
+  plan's tiles (<= T_IDS ids each, spanning < MAXR rows, partitioning the
+  live stream).  CUDA source: csrc/range_scatter.cu.
+* **K2** ``window_scatter_add`` replaces the Pallas window kernel
+  (wide_deep_tpu/ops/scatter.py::window_scatter_add): the same sum over
+  fixed write-only windows of MAXR rows.  CUDA source: csrc/window_scatter.cu.
+
+Both are bound by bytes on the card (the id stream, the permutation and the
+gradient rows read once, the dense [rows, D] output written once); the notes
+in the CUDA sources say what each design does about it.
+
+Beside each kernel sits its plain PyTorch version (``index_add_`` into
+float32 zeros, then one cast).  A wrapper takes the plain version only for
+tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  Each
+launch adds one to the module's counter (``range_launches``,
+``window_launches``; K1 also to ``range_launches_by_width``, keyed by the
+gradient's width D, which tells its call sites apart);
+``window_plain_launches`` counts the plan's own ok=0 branch of
+``apply_window_plan`` apart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from wide_deep_tpu_torch.ops import cuda_build
+
+T_IDS = 1024     # max live ids per tile; the plan ABI shared with the JAX
+                 # package and its C++ loader
+MAXR = 2048      # row-range cap per range tile; rows per window
+ALIGN_IDS = 128  # tile stream starts are multiples of this
+ALIGN_ROWS = 256 # range-tile row_los are multiples of this
+
+PALLAS_SCATTER_MIN_IDS = 1 << 17   # range plans for streams at least this
+                                   # long (plan gating shared with the JAX
+                                   # package's FeaturePlan)
+PALLAS_WINDOW_MIN_IDS = 1 << 16    # window plans likewise
+COMPACT_FRAC = 0.875               # live-cap fraction (see live_cap)
+
+range_launches = 0         # K1 kernel launches
+range_launches_by_width: Dict[int, int] = {}   # the same, by D
+window_launches = 0        # K2 kernel launches
+window_plain_launches = 0  # apply_window_plan's ok=0 branch (plain sum)
+
+
+# ---------------------------------------------------------------- host plans
+def _rows_pad(rows: int, maxr: int = MAXR) -> int:
+    """Output rows padded so every ALIGN_ROWS-aligned slab fits."""
+    aligned = ((rows + ALIGN_ROWS - 1) // ALIGN_ROWS) * ALIGN_ROWS
+    return max(aligned, maxr)
+
+
+def n_tiles_for(n_ids: int, rows: int, t_ids: int = T_IDS,
+                maxr: int = MAXR) -> int:
+    """Static upper bound on range tiles for ``n_ids`` sorted ids over a
+    table of ``rows`` (raw) rows."""
+    rows = _rows_pad(rows, maxr)
+    return int(np.ceil(n_ids / t_ids)
+               + np.ceil(rows / max(maxr - ALIGN_ROWS, 1)) + 1)
+
+
+def build_scatter_tiles(ids_sorted: np.ndarray, rows: int,
+                        t_ids: int = T_IDS, maxr: int = MAXR
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """Host tiling of a sorted id stream -> (starts, offs, counts, row_los),
+    each [n_tiles_for(...)] int32 padded with empty tiles.  Tile t's live
+    ids are ``ids_sorted[starts+offs : starts+offs+counts]``; consecutive
+    tiles partition the stream, each <= t_ids ids spanning < maxr rows."""
+    n = int(ids_sorted.shape[0])
+    n_tiles = n_tiles_for(n, rows, t_ids, maxr)
+    starts = np.zeros(n_tiles, np.int32)
+    offs = np.zeros(n_tiles, np.int32)
+    counts = np.zeros(n_tiles, np.int32)
+    row_los = np.zeros(n_tiles, np.int32)
+    rows_pad = _rows_pad(rows, maxr)
+    max_lo = rows_pad - maxr
+    t = 0
+    i = 0
+    while i < n:
+        lo = (int(ids_sorted[i]) // ALIGN_ROWS) * ALIGN_ROWS
+        lo = min(lo, max_lo)
+        j_cap = min(i + t_ids, n)
+        j = int(np.searchsorted(ids_sorted[i:j_cap], lo + maxr,
+                                side="left")) + i
+        assert j > i, (i, int(ids_sorted[i]), lo, rows)  # id out of range
+        starts[t] = (i // ALIGN_IDS) * ALIGN_IDS
+        offs[t] = i - starts[t]
+        counts[t] = j - i
+        row_los[t] = lo
+        t += 1
+        i = j
+    assert t <= n_tiles, (t, n_tiles)
+    return starts, offs, counts, row_los
+
+
+def live_cap(n_ids: int) -> int:
+    """ALIGN_IDS-aligned COMPACT_FRAC of the stream (the JAX package's
+    static live-id cap; kept for plan parity)."""
+    cap = int(np.ceil(n_ids * COMPACT_FRAC / ALIGN_IDS)) * ALIGN_IDS
+    return min(n_ids, cap)
+
+
+def scatter_batch_spec(n_ids: int, rows: int):
+    """Shapes/dtypes of the per-batch range-plan arrays."""
+    nt = n_tiles_for(n_ids, rows)
+    return {"ids": ((n_ids,), np.int32),
+            "perm": ((n_ids,), np.int32),
+            "tiles": ((4, nt), np.int32),
+            "live": ((1,), np.int32)}
+
+
+def make_scatter_plan(ids_flat: np.ndarray, rows: int,
+                      weights_flat: Optional[np.ndarray] = None):
+    """Flat (unsorted) ids -> {ids, perm, tiles, live} range-plan arrays.
+
+    ``perm`` maps sorted position -> flat position (stable sort).  Entries
+    of weight 0 are pool padding with exactly zero gradient: they get an
+    out-of-range sentinel, sort to the tail and stay out of every tile;
+    ``live`` counts the rest."""
+    n = int(ids_flat.shape[0])
+    sentinel = _rows_pad(rows)
+    if weights_flat is not None:
+        ids_flat = np.where(weights_flat != 0, ids_flat,
+                            sentinel).astype(np.int32)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    live = int(np.searchsorted(ids_sorted, sentinel, side="left"))
+    nt = n_tiles_for(n, rows)
+    starts, offs, counts, row_los = build_scatter_tiles(
+        ids_sorted[:live], rows)
+    tiles = np.zeros((4, nt), np.int32)
+    for i, arr in enumerate((starts, offs, counts, row_los)):
+        tiles[i, :arr.shape[0]] = arr
+    return {"ids": ids_sorted, "perm": order, "tiles": tiles,
+            "live": np.array([live], np.int32)}
+
+
+def window_cap(n_ids: int, rows: int) -> int:
+    """Static per-window id cap: 4x the mean ids-per-window,
+    ALIGN_IDS-aligned, clamped to [ALIGN_IDS, T_IDS]."""
+    n_tiles = max((rows + MAXR - 1) // MAXR, 1)
+    mean = n_ids / n_tiles
+    cap = int(np.ceil(4.0 * mean / ALIGN_IDS)) * ALIGN_IDS
+    return max(ALIGN_IDS, min(cap, T_IDS))
+
+
+def window_rows_pad(rows: int) -> int:
+    return max((rows + MAXR - 1) // MAXR, 1) * MAXR
+
+
+def window_batch_spec(n_ids: int, rows: int):
+    """Shapes/dtypes of the per-batch window-plan arrays."""
+    nt = window_rows_pad(rows) // MAXR
+    return {"ids": ((n_ids,), np.int32),
+            "perm": ((n_ids,), np.int32),
+            "tiles": ((3, nt), np.int32),   # starts, offs, counts
+            "ok": ((1,), np.int32)}
+
+
+def make_window_plan(ids_flat: np.ndarray, rows: int,
+                     weights_flat: Optional[np.ndarray] = None):
+    """Flat ids -> {ids, perm, tiles, ok} window-plan arrays.  ok=0 when a
+    window holds more ids than window_cap (the consumer then takes the plain
+    sum).  Weight-0 padding is remapped past the last window."""
+    n = int(ids_flat.shape[0])
+    spec = window_batch_spec(n, rows)
+    out = {k: np.zeros(shape, dt) for k, (shape, dt) in spec.items()}
+    if weights_flat is not None:
+        sentinel = window_rows_pad(rows)
+        ids_flat = np.where(weights_flat != 0, ids_flat,
+                            sentinel).astype(np.int32)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    out["ids"], out["perm"] = ids_sorted, order
+    nt = spec["tiles"][0][1]
+    cap = window_cap(n, rows)
+    bounds = np.searchsorted(
+        ids_sorted, np.arange(nt + 1, dtype=np.int64) * MAXR, side="left")
+    counts = np.diff(bounds)
+    if counts.max(initial=0) > cap:
+        return out  # ok stays 0
+    starts = (bounds[:-1] // ALIGN_IDS) * ALIGN_IDS
+    out["tiles"][0] = starts
+    out["tiles"][1] = bounds[:-1] - starts
+    out["tiles"][2] = counts
+    out["ok"][0] = 1
+    return out
+
+
+def compact_plan_spec(n_ids: int):
+    """Shapes/dtypes of a compact (dedup) plan for an [n_ids] stream."""
+    nt = n_tiles_for(n_ids, n_ids)
+    return {"uids": ((n_ids,), np.int32),
+            "ids": ((n_ids,), np.int32),
+            "perm": ((n_ids,), np.int32),
+            "tiles": ((4, nt), np.int32)}
+
+
+def make_compact_plan(ids_flat: np.ndarray, rows: int):
+    """Flat ids -> {uids, ids, perm, tiles}: ``ids`` is the sorted stream's
+    compact rank (0,0,1,2,2,...), ``uids[r]`` the table row of rank r,
+    padded with distinct ascending sentinels >= rows."""
+    n = int(ids_flat.shape[0])
+    spec = compact_plan_spec(n)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    first = np.empty(n, bool)
+    first[0] = True
+    np.not_equal(ids_sorted[1:], ids_sorted[:-1], out=first[1:])
+    compact = (np.cumsum(first) - 1).astype(np.int32)
+    u = int(compact[-1]) + 1
+    uids = (rows + np.arange(n, dtype=np.int64)).astype(np.int32)
+    uids[:u] = ids_sorted[first]
+    starts, offs, counts, row_los = build_scatter_tiles(compact, n)
+    nt = spec["tiles"][0][1]
+    tiles = np.zeros((4, nt), np.int32)
+    k = starts.shape[0]
+    assert k <= nt, (k, nt)
+    tiles[0, :k], tiles[1, :k] = starts, offs
+    tiles[2, :k], tiles[3, :k] = counts, row_los
+    return {"uids": uids, "ids": compact, "perm": order, "tiles": tiles}
+
+
+# ---------------------------------------------------------- device wrappers
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_stream(ids_sorted, perm, g_flat, tiles, n_tile_rows, rows,
+                  out_dtype):
+    dev = g_flat.device
+    for name, t in (("ids_sorted", ids_sorted), ("perm", perm),
+                    ("tiles", tiles)):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {dev}")
+    if (g_flat.dim() != 2 or g_flat.dtype not in _FLOATS
+            or not g_flat.is_contiguous()):
+        raise ValueError("g_flat must be a contiguous [N, D] float32 or "
+                         "bfloat16 tensor")
+    n = g_flat.shape[0]
+    if ids_sorted.shape != (n,) or perm.shape != (n,):
+        raise ValueError(f"ids_sorted and perm must be [{n}]")
+    if tiles.dim() != 2 or tiles.shape[0] != n_tile_rows:
+        raise ValueError(f"tiles must be [{n_tile_rows}, n_tiles]")
+    if out_dtype not in _FLOATS:
+        raise ValueError("out_dtype must be float32 or bfloat16")
+    if rows < 0:
+        raise ValueError("rows must be >= 0")
+
+
+def _plain_scatter_add(ids_sorted, perm, g_flat, rows, acc_dtype, out_dtype):
+    """zeros[rows, D].at[ids_sorted].add(g_flat[perm]) summed in
+    ``acc_dtype``; ids outside [0, rows) (plan sentinels) drop."""
+    keep = (ids_sorted >= 0) & (ids_sorted < rows)
+    out = torch.zeros((rows, g_flat.shape[1]), dtype=acc_dtype,
+                      device=g_flat.device)
+    out.index_add_(0, ids_sorted[keep].long(),
+                   g_flat[perm[keep].long()].to(acc_dtype))
+    return out.to(out_dtype)
+
+
+def range_scatter_add_plain(ids_sorted, perm, g_flat, rows, out_dtype=None):
+    """K1's plain version: ``index_add_`` into float32 zeros, one cast."""
+    return _plain_scatter_add(ids_sorted, perm, g_flat, rows, torch.float32,
+                              out_dtype or g_flat.dtype)
+
+
+window_scatter_add_plain = range_scatter_add_plain  # K2: the same function
+
+
+def _lib_range():
+    lib = cuda_build.library("range_scatter")
+    fn = lib.wdt_range_scatter_add
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, p, i, i, i, p, p, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_window():
+    lib = cuda_build.library("window_scatter")
+    fn = lib.wdt_window_scatter_add
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, p, i, i, i, p, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _require_cuda(t: torch.Tensor, what: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors must be on the CPU (plain "
+                         f"version) or on a CUDA device, got {t.device}")
+
+
+def range_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
+                      g_flat: torch.Tensor, tiles: torch.Tensor, rows: int,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """K1: ``zeros[rows, D].at[ids_sorted].add(g_flat[perm])`` under a range
+    plan (``tiles`` int32 [4, nt]: starts, offs, counts, row_los) -> a new
+    [rows, D] tensor in ``out_dtype`` (default: g's dtype), summed in
+    float32.  CPU tensors take the plain version; CUDA tensors launch
+    csrc/range_scatter.cu on the current stream."""
+    global range_launches
+    out_dtype = out_dtype or g_flat.dtype
+    _check_stream(ids_sorted, perm, g_flat, tiles, 4, rows, out_dtype)
+    if g_flat.device.type == "cpu":
+        return range_scatter_add_plain(ids_sorted, perm, g_flat, rows,
+                                       out_dtype)
+    _require_cuda(g_flat, "range_scatter_add")
+    fn = _lib_range()
+    d = g_flat.shape[1]
+    dev = g_flat.device
+    acc = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+    out = (acc if out_dtype == torch.float32
+           else torch.empty((rows, d), dtype=out_dtype, device=dev))
+    err = fn(ids_sorted.data_ptr(), perm.data_ptr(), g_flat.data_ptr(),
+             int(g_flat.dtype == torch.bfloat16), tiles.data_ptr(),
+             tiles.shape[1], rows, d, acc.data_ptr(), out.data_ptr(),
+             int(out_dtype == torch.bfloat16), cuda_build.stream_handle(dev))
+    cuda_build.check(err, "range_scatter_add")
+    range_launches += 1
+    range_launches_by_width[d] = range_launches_by_width.get(d, 0) + 1
+    return out
+
+
+def window_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
+                       g_flat: torch.Tensor, tiles: torch.Tensor, rows: int,
+                       wcap: int, out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """K2: the same sum under a window plan whose ok flag is 1 (``tiles``
+    int32 [3, nt]: starts, offs, counts of window t = rows [t*MAXR,
+    (t+1)*MAXR), each holding <= ``wcap`` ids).  CPU tensors take the plain
+    version; CUDA tensors launch csrc/window_scatter.cu, which writes every
+    output element once."""
+    global window_launches
+    out_dtype = out_dtype or g_flat.dtype
+    _check_stream(ids_sorted, perm, g_flat, tiles, 3, rows, out_dtype)
+    if tiles.shape[1] * MAXR < rows:
+        raise ValueError(f"{tiles.shape[1]} windows cannot cover {rows} rows")
+    if not 0 < wcap <= T_IDS:
+        raise ValueError(f"wcap must be in (0, {T_IDS}], got {wcap}")
+    if g_flat.device.type == "cpu":
+        return window_scatter_add_plain(ids_sorted, perm, g_flat, rows,
+                                        out_dtype)
+    _require_cuda(g_flat, "window_scatter_add")
+    fn = _lib_window()
+    d = g_flat.shape[1]
+    dev = g_flat.device
+    out = torch.empty((rows, d), dtype=out_dtype, device=dev)
+    err = fn(ids_sorted.data_ptr(), perm.data_ptr(), g_flat.data_ptr(),
+             int(g_flat.dtype == torch.bfloat16), tiles.data_ptr(),
+             tiles.shape[1], rows, d, out.data_ptr(),
+             int(out_dtype == torch.bfloat16), cuda_build.stream_handle(dev))
+    cuda_build.check(err, "window_scatter_add")
+    window_launches += 1
+    return out
+
+
+def apply_scatter_plan(plan: Dict[str, torch.Tensor], g_flat: torch.Tensor,
+                       rows: int, out_dtype=None) -> torch.Tensor:
+    """Scatter-add ``g_flat`` [N, D] by a range plan -> [rows, D].  The
+    tiles cover only the live (non-padding) ids, so the kernel never reads
+    the padded tail of the stream."""
+    return range_scatter_add(plan["ids"], plan["perm"], g_flat,
+                             plan["tiles"], rows, out_dtype)
+
+
+def apply_window_plan(plan: Dict[str, torch.Tensor], g_flat: torch.Tensor,
+                      rows: int, out_dtype=None) -> torch.Tensor:
+    """Scatter-add by a window plan.  ok=1 runs K2; ok=0 (a window over its
+    static cap) is the plan's own contract for the plain sum, accumulated in
+    ``out_dtype`` like the JAX package's fallback branch and counted in
+    ``window_plain_launches``.  ``ok`` is read on the host: the port's
+    batches keep it on the CPU."""
+    global window_plain_launches
+    out_dtype = out_dtype or g_flat.dtype
+    n = g_flat.shape[0]
+    if int(plan["ok"][0]) > 0:
+        return window_scatter_add(plan["ids"], plan["perm"], g_flat,
+                                  plan["tiles"], rows, window_cap(n, rows),
+                                  out_dtype)
+    if g_flat.device.type == "cuda":
+        window_plain_launches += 1
+    return _plain_scatter_add(plan["ids"], plan["perm"], g_flat, rows,
+                              out_dtype, out_dtype)

@@ -1,0 +1,181 @@
+"""Fused touched-rows optimizer for huge embedding tables (port of
+wide_deep_tpu/optim/sparse.py's single-device fused path).
+
+Eligible tables (``plan.sparse_opt_group``: unfolded groups of at least
+SPARSE_MIN_ROWS rows; production: the 10,000,128-row d32 table) store the
+param and its optimizer slots side by side in one float32 [rows, 128]
+matrix: param in columns [0, dim), the Adagrad accumulator in [dim, 2*dim)
+initialised to 0.1, zero padding after.  They are left out of the dense
+optimizer.  Each step, per table (``apply_fused_update``):
+
+1. K1 (ops/scatter.range_scatter_add) sums the per-entry gradients of the
+   gathered rows into one float32 row per unique id, by the batch's compact
+   plan (``sopt_*``);
+2. the touched rows are gathered (sentinel uids clipped), the row formula
+   runs on them;
+3. K3 (ops/rowdma.rowdma_scatter_rows) writes them back in place, skipping
+   the sentinels.
+
+Untouched rows are never read or written (reference SparseApply* semantics).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from wide_deep_tpu_torch.optim import Schedule, exponential_decay, tree_get
+
+SPARSE_MIN_ROWS = 1 << 22      # smaller tables sweep densely
+SPARSE_CAPABLE = ("Adagrad", "ProximalAdagrad", "Ftrl", "SGD")
+_SLOT_KEYS = ("accum", "linear")
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseTable:
+    """One sparsely-updated table: param location + batch id source."""
+
+    name: str                      # state key, e.g. "dnn.embed.d32"
+    path: Tuple[Any, ...]          # param tree path ("dnn", "embed", "d32")
+    ids_key: str                   # batch key holding [B, P] ids
+    spec: Dict[str, Any]           # optimizer spec
+    lr: Schedule
+    dim: int = 0                   # embedding columns
+    fused: bool = True             # param stored as float32 [rows, 128]
+    sink_dtype: Any = None         # dtype of the gathered-rows gradient
+
+
+def _n_slots(spec: Dict[str, Any]) -> int:
+    return {"SGD": 0, "Adagrad": 1, "ProximalAdagrad": 1, "Ftrl": 2}[
+        spec["name"]]
+
+
+def fused_layout(spec: Dict[str, Any], dim: int) -> Dict[str, int]:
+    """Column offsets of the optimizer slots inside a fused table."""
+    names = _SLOT_KEYS[:_n_slots(spec)]
+    return {k: (i + 1) * dim for i, k in enumerate(names)}
+
+
+def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
+                       enabled: bool = True
+                       ) -> Tuple[Dict[str, SparseTable], frozenset]:
+    """Tables the fused optimizer owns -> ({name: SparseTable}, paths).
+    Derived from ``plan.sparse_opt_group``, the predicate that also picks
+    the fused param layout, so routing and shapes cannot drift."""
+    spec = model_conf["dnn_optimizer"]
+    if not enabled or spec["name"] not in SPARSE_CAPABLE:
+        return {}, frozenset()
+    from wide_deep_tpu_torch.models.deep import DTYPES
+    lr0 = spec.get("learning_rate", model_conf["dnn_initial_learning_rate"])
+    schedule = exponential_decay(
+        lr0, model_conf.get("dnn_decay_rate", 1.0), decay_steps)
+    sink_dtype = DTYPES[model_conf.get("embedding_dtype") or "float32"]
+    out: Dict[str, SparseTable] = {}
+    for g in plan.groups:
+        if plan.sparse_opt_group(g, batch_size):
+            name = f"dnn.embed.d{g.dim}"
+            out[name] = SparseTable(
+                name=name, path=("dnn", "embed", f"d{g.dim}"),
+                ids_key=f"emb_ids_d{g.dim}", spec=spec, lr=schedule,
+                dim=g.dim, sink_dtype=sink_dtype)
+    return out, frozenset(t.path for t in out.values())
+
+
+def init_table_state(table: SparseTable) -> Dict[str, Any]:
+    """A fused table's slots live in its param matrix: the state is its
+    step count."""
+    return {"count": 0}
+
+
+@torch.no_grad()
+def init_fused_params(params, sparse_tables: Dict[str, SparseTable]):
+    """Set the slot column blocks of fused tables to their init values
+    (the model creates them zero), in place."""
+    for t in (sparse_tables or {}).values():
+        p = tree_get(params, t.path)
+        for key, off in fused_layout(t.spec, t.dim).items():
+            val = (t.spec.get("initial_accumulator_value", 0.1)
+                   if key == "accum" else 0.0)
+            if val:
+                p[:, off:off + t.dim] = val
+    return params
+
+
+def _row_update(spec: Dict[str, Any], lr, w: torch.Tensor, g: torch.Tensor,
+                slots: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One optimizer step on float32 row slices: (w, g, slots) -> (w',
+    slots'), the formulas of the dense optimizers."""
+    name = spec["name"]
+    new_slots: Dict[str, torch.Tensor] = {}
+    if name == "SGD":
+        w_new = w - lr * g
+    elif name == "Adagrad":
+        n2 = slots["accum"] + g * g
+        w_new = w - lr * g * torch.rsqrt(n2 + 1e-7)
+        new_slots["accum"] = n2
+    elif name == "ProximalAdagrad":
+        l1 = spec.get("l1_regularization_strength", 0.0)
+        l2 = spec.get("l2_regularization_strength", 0.0)
+        n2 = slots["accum"] + g * g
+        adj = lr * torch.rsqrt(n2)
+        prox = w - adj * g
+        w_new = (torch.sign(prox)
+                 * torch.clamp(torch.abs(prox) - adj * l1, min=0.0)
+                 / (1.0 + adj * l2))
+        # rows whose gradient is exactly zero (pool padding) keep their
+        # weights: the proximal shrink is not a zero-gradient fixed point
+        w_new = torch.where(torch.all(g == 0.0, dim=-1, keepdim=True),
+                            w, w_new)
+        new_slots["accum"] = n2
+    elif name == "Ftrl":
+        l1 = spec.get("l1_regularization_strength", 0.0)
+        l2 = spec.get("l2_regularization_strength", 0.0)
+        n = slots["accum"]
+        n2 = n + g * g
+        z2 = slots["linear"] + g - (torch.sqrt(n2) - torch.sqrt(n)) / lr * w
+        w_new = torch.where(torch.abs(z2) <= l1, torch.zeros_like(w),
+                            (torch.sign(z2) * l1 - z2)
+                            / (torch.sqrt(n2) / lr + 2 * l2))
+        new_slots["accum"] = n2
+        new_slots["linear"] = z2
+    else:
+        raise ValueError(f"no sparse formula for {name}")
+    return w_new, new_slots
+
+
+@torch.no_grad()
+def apply_fused_update(table: SparseTable, fused: torch.Tensor,
+                       row_grads: torch.Tensor,
+                       plan: Dict[str, torch.Tensor],
+                       state: Dict[str, Any]) -> torch.Tensor:
+    """Touched-rows update of a fused [rows, 128] table, in place.
+
+    ``row_grads`` [N, dim] is the gradient of the rows the forward gathered
+    (one per pool entry); ``plan`` the batch's compact plan {uids, ids,
+    perm, tiles}.  K1 sums duplicates into one float32 row per unique id,
+    the formula runs on the gathered rows, K3 writes them back; padding
+    columns are written back unchanged."""
+    from wide_deep_tpu_torch.ops.rowdma import rowdma_scatter_rows
+    from wide_deep_tpu_torch.ops.scatter import range_scatter_add
+    lr = table.lr(state["count"])
+    n, d = row_grads.shape
+    g_unique = range_scatter_add(plan["ids"], plan["perm"],
+                                 row_grads.float().contiguous(),
+                                 plan["tiles"], n, torch.float32)
+    uids = plan["uids"]
+    safe = torch.clamp(uids, 0, fused.shape[0] - 1)
+    full = fused.index_select(0, safe)
+    layout = fused_layout(table.spec, d)
+    w = full[:, :d]
+    slots = {k: full[:, off:off + d] for k, off in layout.items()}
+    w_new, new_rows = _row_update(table.spec, lr, w, g_unique, slots)
+    used = (1 + len(layout)) * d
+    new_full = torch.cat(
+        [w_new] + [new_rows[k] for k in _SLOT_KEYS if k in new_rows]
+        + [full[:, used:]], dim=1).contiguous()
+    rowdma_scatter_rows(fused, uids, new_full)
+    state["count"] += 1
+    return fused
