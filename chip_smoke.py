@@ -10,9 +10,11 @@ line each on stdout:
 
 0. the card's name and power limit (nvidia-smi), the kernels' build time;
 1. K1 (range scatter-add) at the production d8, d4 and d32-compact shapes,
-   K2 (window scatter-add) at the d16 shape, K3 (row write-back) on a
-   [10,000,128, 128] float32 table with sentinel uids: each against its
-   plain PyTorch version on the same inputs, with its time from CUDA events
+   K2 (window scatter-add) at the d16 shape, K3 (row write-back) and P2
+   (bulk row scatter) on one [10,000,128, 128] float32 table with sentinel
+   uids, P2 again at that shape in bfloat16, P1 (resident gather) at its
+   tool's shape (2^20 ids from a [25600, 8] pool): each against its plain
+   PyTorch version on the same inputs, with its time from CUDA events
    beside the plain version's, one PyTorch library call's and the bound;
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
    pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
@@ -24,7 +26,13 @@ line each on stdout:
    then (2c, after the launch counts are read) torch.profiler over 3 more
    steps: wall time, the device's busy share, the top kernels by device
    time (the Chrome trace goes to build/step_trace.json);
-3. one JSON line describing the kernels, then the device line.
+3. the probes' path: ``main`` of the port's two microbenchmark tools,
+   in-process on the card as a user runs them (P1's; P2's in float32 and
+   with ``bf16``), each of which checks its kernel against the plain
+   version and prints both times; the counts are set to 0 before the
+   phase and read around each tool, which must launch its kernel and no
+   other;
+4. one JSON line describing the kernels, then the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -46,24 +54,6 @@ BF16_TOL = 2.0 ** -7           # one bfloat16 ulp, relative
 
 def log(msg):
     print(msg, flush=True)
-
-
-def median_ms(fn, reps=20, warmup=3):
-    import numpy as np
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def bound_ms(n_bytes, n_ops):
@@ -92,13 +82,56 @@ def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
     out_es = torch.finfo(out_dtype).bits // 8
     n_bytes = n_live * (4 + 4 + d * in_bytes_per_el) + rows * d * out_es \
         + extra_bytes
-    b_ms, b_by = bound_ms(n_bytes, n_live * d)
+    return timed_row(name, source, replaces, max_err, tol_text, ok, fn,
+                     plain, library, n_bytes, n_live * d)
+
+
+def check_writeback(name, fn, table, uids, new_rows, source, replaces):
+    """Hold one row write-back kernel (K3, P2) against the plain version on
+    a copy of ``table`` (exact) and time it; ``index_copy_`` of the live
+    rows is the library call."""
+    import torch
+
+    from wide_deep_tpu_torch.ops import rowdma
+    n = uids.shape[0]
+    valid = (uids >= 0) & (uids < table.shape[0])
+    n_valid = int(valid.sum())
+    if n_valid == n:
+        raise SystemExit("expected sentinel uids in the compact plan")
+    table_p = table.clone()
+    fn(table, uids, new_rows)
+    rowdma.rowdma_scatter_rows_plain(table_p, uids, new_rows)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(table, table_p))
+    max_err = float((table - table_p).abs().max())
+    del table_p
+    lib_uids = uids[valid].long()
+    lib_rows = new_rows[valid]
+    row_bytes = table.shape[1] * table.element_size()
+    return timed_row(
+        name, source, replaces, max_err, "exact", exact,
+        lambda: fn(table, uids, new_rows),
+        lambda: rowdma.rowdma_scatter_rows_plain(table, uids, new_rows),
+        lambda: table.index_copy_(0, lib_uids, lib_rows),
+        n * 4 + n_valid * row_bytes * 2, 0)
+
+
+def timed_row(name, source, replaces, max_err, tol_text, ok, fn, plain,
+              library, n_bytes, n_ops):
+    """One kernel's row of the kernels line: its time, the plain
+    version's, the library call's (each the median of 20 runs by CUDA
+    events, the tools' timer) and the bound; logged on one line."""
+    import torch
+
+    from wide_deep_tpu_torch.tools import median_ms
+    dev = torch.device("cuda")
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": max_err,
            "tolerance": tol_text, "ok": ok,
-           "ms": median_ms(fn), "plain_ms": median_ms(plain),
+           "ms": median_ms(fn, 20, dev), "plain_ms": median_ms(plain, 20, dev),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": median_ms(library)}
+           "library_ms": median_ms(library, 20, dev)}
     log(f"phase 1: {name}: max_abs_err {max_err:.3g} ({tol_text}) "
         f"{'ok' if ok else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
@@ -111,8 +144,9 @@ def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
 def phase_kernels(plan, batch, device):
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
-    from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.ops import gather, rowdma, scatter
 
     gen = torch.Generator(device=device).manual_seed(0)
     groups = {g.dim: g for g in plan.groups}
@@ -182,49 +216,62 @@ def phase_kernels(plan, batch, device):
         "wide_deep_tpu/ops/scatter.py:355"))
     del ids, perm, tiles, g, lib_ids, lib_g
 
-    # K3 on the production fused table, sentinel uids included
+    # K3, then P2, on the production fused table, sentinel uids included
     g32 = groups[32]
     uids = t("sopt_uids_d32")
     n = uids.shape[0]
-    valid = (uids >= 0) & (uids < g32.rows)
-    n_valid = int(valid.sum())
-    if n_valid == n:
-        raise SystemExit("expected sentinel uids in the compact plan")
-    table_k = torch.randn((g32.rows, rowdma.FUSED_WIDTH), generator=gen,
-                          device=device)
-    table_p = table_k.clone()
+    log(f"phase 1: row write-backs: {n} sorted uids "
+        f"({int((uids >= g32.rows).sum())} sentinels) into "
+        f"[{g32.rows}, {rowdma.FUSED_WIDTH}]")
+    table = torch.randn((g32.rows, rowdma.FUSED_WIDTH), generator=gen,
+                        device=device)
     new_rows = torch.randn((n, rowdma.FUSED_WIDTH), generator=gen,
                            device=device)
-    rowdma.rowdma_scatter_rows(table_k, uids, new_rows)
-    rowdma.rowdma_scatter_rows_plain(table_p, uids, new_rows)
+    rows_out.append(check_writeback(
+        "K3 rowdma_scatter_rows d32", rowdma.rowdma_scatter_rows, table,
+        uids, new_rows, "wide_deep_tpu_torch/csrc/rowdma.cu",
+        "wide_deep_tpu/ops/rowdma.py:80"))
+    # fresh values for P2: K3's runs already wrote new_rows into the table,
+    # and a kernel that wrote nothing would then pass the check
+    p2 =("wide_deep_tpu_torch/csrc/bulk_row_scatter.cu",
+          "tools/microbench_rowdma_scatter.py:68")
+    table.normal_(generator=gen)
+    p2_row = check_writeback("P2 bulk_scatter_rows f32",
+                             rowdma.bulk_scatter_rows, table, uids, new_rows,
+                             *p2)
+    del table
+    torch.cuda.empty_cache()
+    table = torch.randn((g32.rows, rowdma.FUSED_WIDTH), generator=gen,
+                        device=device).to(torch.bfloat16)
+    p2_row["bf16"] = check_writeback(
+        "P2 bulk_scatter_rows bf16", rowdma.bulk_scatter_rows, table, uids,
+        new_rows.to(torch.bfloat16), *p2)
+    del table, new_rows
+    torch.cuda.empty_cache()
+
+    # P1 at its tool's shape: 2^20 ids (the d8 stream) from a [25600, 8]
+    # pool
+    n1, b1, d1 = 1 << 20, 25600, 8
+    seg = torch.randint(0, b1, (n1,), generator=gen, device=device,
+                        dtype=torch.int32)
+    w = torch.rand(n1, generator=gen, device=device)
+    dpool = torch.randn((b1, d1), generator=gen, device=device)
+    got = gather.resident_gather(seg, w, dpool)
+    want = gather.resident_gather_plain(seg, w, dpool)
     torch.cuda.synchronize()
-    exact = bool(torch.equal(table_k, table_p))
-    max_err = float((table_k - table_p).abs().max())
-    del table_p
-    lib_uids = uids[valid].long()
-    lib_rows = new_rows[valid]
-    n_bytes = n * 4 + n_valid * rowdma.FUSED_WIDTH * 4 * 2
-    b_ms, b_by = bound_ms(n_bytes, 0)
-    row = {"name": "K3 rowdma_scatter_rows d32", "route": "cuda",
-           "source": "wide_deep_tpu_torch/csrc/rowdma.cu",
-           "replaces": "wide_deep_tpu/ops/rowdma.py:80", "launches": 0,
-           "max_abs_err": max_err, "tolerance": "exact", "ok": exact,
-           "ms": median_ms(lambda: rowdma.rowdma_scatter_rows(
-               table_k, uids, new_rows)),
-           "plain_ms": median_ms(lambda: rowdma.rowdma_scatter_rows_plain(
-               table_k, uids, new_rows)),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": median_ms(lambda: table_k.index_copy_(
-               0, lib_uids, lib_rows))}
-    log(f"phase 1: K3 rowdma_scatter_rows: {n} uids ({n - n_valid} "
-        f"sentinels), max_abs_err {max_err:.3g} (exact) "
-        f"{'ok' if exact else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    if not exact:
-        raise SystemExit("K3 disagrees with its plain version")
-    del table_k, new_rows
-    rows_out.append(row)
+    offsets = torch.arange(n1, device=device, dtype=torch.int32)
+    rows_out.append(timed_row(
+        "P1 resident_gather", "wide_deep_tpu_torch/csrc/resident_gather.cu",
+        "tools/microbench_vmem_gather.py:38",
+        float((got - want).abs().max()), "exact",
+        bool(torch.equal(got, want)),
+        lambda: gather.resident_gather(seg, w, dpool),
+        lambda: gather.resident_gather_plain(seg, w, dpool),
+        lambda: F.embedding_bag(seg, dpool, offsets, mode="sum",
+                                per_sample_weights=w),
+        n1 * (4 + 4 + d1 * 4) + b1 * d1 * 4, n1 * d1))
+    rows_out.append(p2_row)
+    del seg, w, dpool, got, want, offsets
     torch.cuda.empty_cache()
     return rows_out
 
@@ -237,22 +284,26 @@ PER_STEP = dict({f"K1 {site}": 1 for site in K1_SITES.values()}, K3=1)
 
 
 def counts():
-    from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.ops import gather, rowdma, scatter
     out = {"K1": scatter.range_launches, "K2": scatter.window_launches,
            "K2_plain": scatter.window_plain_launches,
-           "K3": rowdma.rowdma_launches}
+           "K3": rowdma.rowdma_launches,
+           "P1": gather.resident_gather_launches,
+           "P2": rowdma.bulk_scatter_launches}
     for d, n in scatter.range_launches_by_width.items():
         out[f"K1 {K1_SITES.get(d, f'D={d}')}"] = n
     return out
 
 
 def reset_counts():
-    from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.ops import gather, rowdma, scatter
     scatter.range_launches = 0
     scatter.range_launches_by_width.clear()
     scatter.window_launches = 0
     scatter.window_plain_launches = 0
     rowdma.rowdma_launches = 0
+    gather.resident_gather_launches = 0
+    rowdma.bulk_scatter_launches = 0
 
 
 def delta(before, after):
@@ -261,9 +312,11 @@ def delta(before, after):
 
 def check_step(what, d):
     """One production step's counter changes ``d``: K1 once at each of its
-    three sites and nowhere else, K2 or the d16 ok=0 branch once, K3 once."""
+    three sites and nowhere else, K2 or the d16 ok=0 branch once, K3 once,
+    the probes (P1, P2) never."""
     got = {k: d.get(k, 0) for k in PER_STEP}
-    if got != PER_STEP or d["K1"] != 3 or d["K2"] + d["K2_plain"] != 1:
+    if (got != PER_STEP or d["K1"] != 3 or d["K2"] + d["K2_plain"] != 1
+            or d["P1"] or d["P2"]):
         raise SystemExit(f"{what} launched {d}")
 
 
@@ -405,7 +458,53 @@ def profile_steps(trainer, rng, n_steps=3):
     prof.export_chrome_trace(os.path.join(ROOT, "build", "step_trace.json"))
 
 
+def phase_tools():
+    """This slice's path: the two probe tools' ``main`` in-process on the
+    card, with the arguments a user gives them; each checks its kernel
+    against the plain version (exiting non-zero on a mismatch) and prints
+    its times.  -> {"P1": launches, "P2": launches (float32 run),
+    "P2 bf16": launches}."""
+    import gc
+
+    import torch
+
+    from wide_deep_tpu_torch.tools import (microbench_rowdma_scatter,
+                                           microbench_vmem_gather)
+    out = {}
+    reset_counts()                      # the probes' path starts here
+    for key, tool, argv in (("P1", microbench_vmem_gather, []),
+                            ("P2", microbench_rowdma_scatter, []),
+                            ("P2 bf16", microbench_rowdma_scatter,
+                             ["bf16"])):
+        name = f"{tool.__name__.rsplit('.', 1)[1]} {' '.join(argv)}".strip()
+        c0 = counts()
+        t0 = time.time()
+        tool.main(argv)
+        torch.cuda.synchronize()
+        d = delta(c0, counts())
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernel = key.split()[0]
+        out[key] = d[kernel]
+        others = {k: v for k, v in d.items() if v and k != kernel}
+        log(f"phase 3: {name}: {d[kernel]} {kernel} launches in "
+            f"{time.time() - t0:.1f} s")
+        if not d[kernel] or others:
+            raise SystemExit(f"phase 3: {name} launched {d}")
+    return out
+
+
+def count_key(name):
+    """A kernels-line row's counter: "K1 range_scatter_add d8" -> "K1 d8",
+    "K3 rowdma_scatter_rows d32" -> "K3", "P2 bulk_scatter_rows f32" ->
+    "P2"."""
+    parts = name.split(" ", 2)
+    return f"K1 {parts[2]}" if parts[0] == "K1" else parts[0]
+
+
 def main():
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -441,13 +540,19 @@ def main():
         main_counts, _ = phase_trainer(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for row in kernels:     # "K1 range_scatter_add d8" -> "K1 d8"
-        kernel, _, site = row["name"].split(" ", 2)
-        row["launches"] = main_counts.get(
-            f"K1 {site}" if kernel == "K1" else kernel, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tool_counts = phase_tools()
+
+    # K1, K2 and K3 launch on the train path, P1 and P2 on the tools' path
+    paths = dict(main_counts, **tool_counts)
+    for row in kernels:
+        row["launches"] = paths.get(count_key(row["name"]), 0)
+        if "bf16" in row:
+            row["bf16"]["launches"] = tool_counts["P2 bf16"]
     if not all(row["launches"] > 0 for row in kernels):
-        raise SystemExit(f"a kernel never ran on the main path: "
-                         f"{main_counts}")
+        raise SystemExit(f"a kernel never ran on its path: train "
+                         f"{main_counts}, tools {tool_counts}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,9 @@ float32 sum once); float32 outputs, kernel and plain version alike, within
 1e-6 of each row's sum of magnitudes from the float64 sum of the same
 inputs (float32 round-off grows with the magnitudes summed, not with what
 is left after they cancel, and the plain version's atomic adds on the card
-sum in a different order on every call); K3 exact.
-The case generators are shared with tests/test_torch_scatter.py.
+sum in a different order on every call); K3, P1 and P2 exact.
+The case generators are shared with tests/test_torch_scatter.py and
+tests/test_torch_probes.py.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import wide_deep_tpu_torch.ops.scatter as tsc  # noqa: E402
+from wide_deep_tpu_torch.ops import gather as tgather  # noqa: E402
 from wide_deep_tpu_torch.ops import rowdma as trowdma  # noqa: E402
 
 BF16_ULP = 2.0 ** -7
@@ -118,6 +120,57 @@ def test_cuda_window_and_rowdma_kernels_match_plain(cuda_device):
     got = trowdma.rowdma_scatter_rows(table.clone(), uids, new)
     ref = trowdma.rowdma_scatter_rows_plain(table.clone(), uids, new)
     assert torch.equal(got, ref)
+
+
+def _p1_case(n, b, d, seed):
+    """seg with negative and >= b ids mixed in (wrap once, then clamp)."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(-2 * b, 2 * b, n).astype(np.int32)
+    seg[:4] = [-1, -b, b, -3 * b]
+    return (seg, rng.random(n).astype(np.float32),
+            rng.standard_normal((b, d)).astype(np.float32))
+
+
+def _p2_case(r, n, d, dtype, seed):
+    """n sorted unique uids in [0, r) followed by sentinels >= r."""
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.choice(r, n, replace=False))
+    uids = np.concatenate([live, r + np.arange(20), [2 ** 31 - 1]]
+                          ).astype(np.int32)
+    rows = torch.from_numpy(rng.standard_normal((uids.size, d)).astype(
+        np.float32)).to(dtype)
+    table = torch.from_numpy(rng.standard_normal((r, d)).astype(
+        np.float32)).to(dtype)
+    return uids, rows, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 9])
+def test_cuda_resident_gather_matches_plain(cuda_device, d):
+    seg, w, dpool = (torch.from_numpy(a).to(cuda_device)
+                     for a in _p1_case(3000, 512, d, seed=d))
+    before = tgather.resident_gather_launches
+    got = tgather.resident_gather(seg, w, dpool)
+    torch.cuda.synchronize()
+    assert tgather.resident_gather_launches == before + 1
+    assert torch.equal(got, tgather.resident_gather_plain(seg, w, dpool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,d,dtype", [
+    (4096, 300, 128, torch.float32), (4096, 300, 64, torch.float32),
+    (4096, 300, 128, torch.bfloat16), (10000, 3000, 128, torch.bfloat16),
+    (10000, 3000, 8, torch.bfloat16)])
+def test_cuda_bulk_scatter_rows_matches_plain(cuda_device, r, n, d, dtype):
+    uids, rows, table = _p2_case(r, n, d, dtype, seed=d)
+    uids = torch.from_numpy(uids).to(cuda_device)
+    rows, table = rows.to(cuda_device), table.to(cuda_device)
+    want = trowdma.rowdma_scatter_rows_plain(table.clone(), uids, rows)
+    before = trowdma.bulk_scatter_launches
+    got = trowdma.bulk_scatter_rows(table, uids, rows)
+    torch.cuda.synchronize()
+    assert trowdma.bulk_scatter_launches == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

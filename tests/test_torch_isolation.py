@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -61,6 +62,7 @@ def test_port_has_no_undefined_names():
 
 def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.interop import from_jax
     from wide_deep_tpu_torch.models.joint import resolve_device
     from wide_deep_tpu_torch.testing import write_small_conf
     from wide_deep_tpu_torch.training.loop import Trainer
@@ -70,6 +72,10 @@ def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         Trainer(conf, "wide_deep")
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax({"w": np.zeros(2, np.float32)}, {})
+    assert from_jax({"w": np.zeros(2, np.float32)}, {},
+                    device="cpu")[0]["w"].device.type == "cpu"
     tr = Trainer(conf, "wide_deep", device="cpu")
     assert tr.device.type == "cpu"
 

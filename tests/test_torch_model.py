@@ -60,7 +60,7 @@ def test_forward_matches_jax(tmp_path, monkeypatch, bf16, n_classes):
     for st in mstate_np["bn"].values():
         st["mean"] = rng.normal(size=st["mean"].shape).astype(np.float32)
         st["var"] = rng.uniform(0.5, 2, st["var"].shape).astype(np.float32)
-    tparams, tstate = from_jax(params_np, mstate_np)
+    tparams, tstate = from_jax(params_np, mstate_np, device="cpu")
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tbatch = to_torch(batch)
     tol = dict(rtol=2e-2, atol=2e-2) if bf16 else dict(rtol=2e-5, atol=2e-6)

@@ -142,7 +142,7 @@ def _run(tmp_path_factory, monkeypatch_ctx, mode, bf16, n_steps):
     ttables, tpaths = tsparse.plan_sparse_tables(tp, tconf.model,
                                                  DECAY_STEPS, B)
     assert sorted(ttables) == sorted(jtables)
-    tparams, tmstate = from_jax(params_np, mstate_np)
+    tparams, tmstate = from_jax(params_np, mstate_np, device="cpu")
     ttxo = ttx(tconf.model, DECAY_STEPS, arms, sparse_paths=tpaths)
     topt = tinit_opt(ttxo, tparams, ttables)
 

@@ -58,7 +58,8 @@ def test_trainer_matches_jax(tmp_path, monkeypatch):
     assert sorted(ttr.sparse_tables) == sorted(jtr.sparse_tables) != []
     assert ttr.plan.to_dict() == jtr.plan.to_dict()
     ttr.params, ttr.mstate = from_jax(jax.device_get(jtr.params),
-                                      jax.device_get(jtr.mstate))
+                                      jax.device_get(jtr.mstate),
+                                      device="cpu")
 
     jbatches, jlosses, tbatches = [], [], []
     to_device, step = jtr._to_device, jtr._train_step

@@ -16,6 +16,8 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from wide_deep_tpu_torch.models.joint import resolve_device
+
 
 def _to_tensor(arr, device) -> torch.Tensor:
     arr = np.array(arr)                       # a writable, contiguous copy
@@ -33,10 +35,11 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax(params_np, mstate_np, device="cpu") -> Tuple[Any, Any]:
+def from_jax(params_np, mstate_np, device=None) -> Tuple[Any, Any]:
     """JAX param tree and model state (numpy leaves) -> the port's (params,
-    state) on ``device``, same keys and dtypes."""
-    device = torch.device(device)
+    state) on ``device``, same keys and dtypes: the card unless the caller
+    passes ``device="cpu"``."""
+    device = resolve_device(device)
     return (_map(params_np, lambda a: _to_tensor(a, device)),
             _map(mstate_np, lambda a: _to_tensor(a, device)))
 

@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("range_scatter", "window_scatter", "rowdma")
+SOURCES = ("range_scatter", "window_scatter", "rowdma", "resident_gather",
+           "bulk_row_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
