@@ -15,7 +15,9 @@ line each on stdout:
    uids, P2 again at that shape in bfloat16, P1 (resident gather) at its
    tool's shape (2^20 ids from a [25600, 8] pool): each against its plain
    PyTorch version on the same inputs, with its time from CUDA events
-   beside the plain version's, one PyTorch library call's and the bound;
+   beside the plain version's, one PyTorch library call's and the bound
+   (K2's line gives the sub-window the kernel launches with, which must be
+   the one its wrapper assumes);
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
    pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
    5 steps on seeded synthetic batches; every step, each read on its own,
@@ -25,7 +27,8 @@ line each on stdout:
    must stay finite, touched d32 rows must change and an untouched one not;
    then (2c, after the launch counts are read) torch.profiler over 3 more
    steps: wall time, the device's busy share, the top kernels by device
-   time (the Chrome trace goes to build/step_trace.json);
+   time, and the device time of the port's own kernels in the step (the
+   Chrome trace goes to build/step_trace.json);
 3. the probes' path: ``main`` of the port's two microbenchmark tools,
    in-process on the card as a user runs them (P1's; P2's in float32 and
    with ``bf16``), each of which checks its kernel against the plain
@@ -50,6 +53,9 @@ BATCH = 25600
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 BF16_TOL = 2.0 ** -7           # one bfloat16 ulp, relative
+# csrc kernels a train step launches (K1 with its bf16 cast, K2, K3)
+PORTED_STEP_KERNELS = ("range_scatter_kernel", "cast_bf16_kernel",
+                       "window_scatter_kernel", "rowdma_kernel")
 
 
 def log(msg):
@@ -203,6 +209,13 @@ def phase_kernels(plan, batch, device):
     ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
         "wscat", 16, 17, torch.bfloat16, g16.rows)
     wcap = scatter.window_cap(ids.shape[0], g16.rows)
+    sub = scatter.kernel_window_sub_rows(17, torch.bfloat16)
+    if sub != scatter.window_sub_rows(17, torch.bfloat16):
+        raise SystemExit(f"K2 launches {sub}-row sub-windows, its wrapper "
+                         f"assumes {scatter.window_sub_rows(17, torch.bfloat16)}")
+    log(f"phase 1: K2 d16: {n_live} live ids, {tiles.shape[1]} windows of "
+        f"{scatter.MAXR} rows, {-(-g16.rows // sub)} blocks of {sub}-row "
+        f"sub-windows ({sub * 17 * 2}-byte slabs)")
     rows_out.append(check_scatter(
         "K2 window_scatter_add d16",
         lambda: scatter.window_scatter_add(ids, perm, g, tiles, g16.rows,
@@ -454,6 +467,12 @@ def profile_steps(trainer, rng, n_steps=3):
         f"device busy {busy_ms:.2f} ms/step "
         f"({100 * busy_ms / wall_ms:.1f}%); top by device time: "
         + ("; ".join(top) if top else "the profiler saw no device time"))
+    ported = [f"{name} {sum(dev_us(e) for e in hits) / 1e3 / n_steps:.4f} "
+              f"ms x{sum(e.count for e in hits) // n_steps}"
+              for name in PORTED_STEP_KERNELS
+              for hits in [[e for e in kernels if name in e.key]]]
+    log("phase 2c: the port's kernels, device time per step: "
+        + "; ".join(ported))
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     prof.export_chrome_trace(os.path.join(ROOT, "build", "step_trace.json"))
 

@@ -10,7 +10,8 @@ float32 sum once); float32 outputs, kernel and plain version alike, within
 1e-6 of each row's sum of magnitudes from the float64 sum of the same
 inputs (float32 round-off grows with the magnitudes summed, not with what
 is left after they cancel, and the plain version's atomic adds on the card
-sum in a different order on every call); K3, P1 and P2 exact.
+sum in a different order on every call); K2 bitwise equal to itself from
+call to call; K3, P1 and P2 exact.
 The case generators are shared with tests/test_torch_scatter.py and
 tests/test_torch_probes.py.
 """
@@ -58,6 +59,32 @@ def _range_case(kind, n, rows, d, dtype, seed):
     rng = np.random.default_rng(seed)
     ids = _ids(kind, n, rows, rng)
     plan = tsc.make_scatter_plan(ids, rows, _weights(n, rng))
+    return (plan,) + _grads(plan, n, rows, d, dtype, rng)
+
+
+# K2 cases: odd rows, so with an odd D the last, partial sub-window's byte
+# length is never a multiple of 16
+WINDOW_CASES = [("uniform", 6000, 40001), ("skewed", 1000, 5001),
+                ("two_ranges", 200, 31001), ("full_window", 2048, 4097)]
+
+
+def _window_case(kind, n, rows, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "full_window":   # window 0 holds exactly T_IDS ids
+        ids = np.concatenate([rng.integers(0, tsc.MAXR, tsc.T_IDS),
+                              rng.integers(tsc.MAXR, rows, n - tsc.T_IDS)])
+        plan = tsc.make_window_plan(rng.permutation(ids).astype(np.int32),
+                                    rows)
+        assert plan["tiles"][2, 0] == tsc.T_IDS
+    else:
+        plan = tsc.make_window_plan(_ids(kind, n, rows, rng), rows,
+                                    _weights(n, rng))
+    assert plan["ok"][0] == 1
+    return (plan,) + _grads(plan, n, rows, d, dtype, rng)
+
+
+def _grads(plan, n, rows, d, dtype, rng):
+    """-> (g as ``dtype``, float64 sum, float64 sum of magnitudes)."""
     g = rng.normal(size=(n, d)).astype(np.float32)
     g_t = torch.from_numpy(g).to(dtype)
     g64 = g_t.double().numpy()          # the grads as the kernels see them
@@ -66,7 +93,7 @@ def _range_case(kind, n, rows, d, dtype, seed):
     np.add.at(ref, plan["ids"][keep], g64[plan["perm"][keep]])
     abs_sum = np.zeros((rows, d), np.float64)
     np.add.at(abs_sum, plan["ids"][keep], np.abs(g64[plan["perm"][keep]]))
-    return plan, g_t, ref, abs_sum
+    return g_t, ref, abs_sum
 
 
 @pytest.fixture
@@ -101,17 +128,55 @@ def test_cuda_range_kernel_matches_plain(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_window_and_rowdma_kernels_match_plain(cuda_device):
-    rng = np.random.default_rng(2)
-    rows, n = 40000, 6000
-    plan = tsc.make_window_plan(_ids("uniform", n, rows, rng), rows)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [5, 9, 17, 33])
+@pytest.mark.parametrize("kind,n,rows", WINDOW_CASES)
+def test_cuda_window_kernel_matches_plain(cuda_device, kind, n, rows, d,
+                                          dtype):
+    """K2 at its edges: long runs, empty windows, a window of exactly T_IDS
+    ids, a partial last sub-window with a 2-byte tail, every folded width;
+    g and out in ``dtype``.  Two calls give the same bits."""
+    plan, g, ref, abs_sum = _window_case(kind, n, rows, d, dtype, seed=d)
+    es = torch.finfo(dtype).bits // 8
+    assert (rows % tsc.window_sub_rows(d, dtype)) * d * es % 16
     tp = {k: torch.from_numpy(v).to(cuda_device) for k, v in plan.items()}
-    g = torch.randn((n, 17), device=cuda_device).to(torch.bfloat16)
+    g = g.to(cuda_device)
+    wcap = tsc.window_cap(n, rows)
+    before = tsc.window_launches
     out = tsc.window_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], rows,
-                                 tsc.window_cap(n, rows))
+                                 wcap)
+    again = tsc.window_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"],
+                                   rows, wcap)
     want = tsc.window_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
-    assert bool(((out.float() - want.float()).abs()
-                 <= BF16_ULP * want.float().abs() + 1e-5).all())
+    torch.cuda.synchronize()
+    assert tsc.window_launches == before + 2
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), again.view(bits))
+    if dtype == torch.bfloat16:
+        tol = BF16_ULP * want.float().abs() + 1e-5
+        assert bool(((out.float() - want.float()).abs() <= tol).all())
+    else:
+        tol = 1e-6 * abs_sum + 1e-6
+        for got in (out, want):
+            err = np.abs(got.double().cpu().numpy() - ref)
+            assert (err <= tol).all(), float((err / (abs_sum + 1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_window_sub_rows_match_the_kernel(cuda_device, dtype):
+    """The wrapper's sub-window and its refusals are the kernel's own, at
+    every row width up to past the widest it takes."""
+    for d in range(1, 1100):
+        try:
+            want = tsc.window_sub_rows(d, dtype)
+        except ValueError:
+            want = 0
+        assert tsc.kernel_window_sub_rows(d, dtype) == want, d
+
+
+@pytest.mark.cuda
+def test_cuda_rowdma_kernel_matches_plain(cuda_device):
     table = torch.randn((5000, 128), device=cuda_device)
     uids = torch.cat([torch.randperm(5000, device=cuda_device)[:900].sort()
                       .values, 5000 + torch.arange(100, device=cuda_device)]

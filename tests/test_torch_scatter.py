@@ -234,3 +234,44 @@ def test_rowdma_wrapper_rejects_bad_inputs(bad):
         uids = uids.long()
     with pytest.raises(ValueError):
         trowdma.rowdma_scatter_rows(table, uids, rows)
+
+
+@pytest.mark.parametrize("d,dtype,sub", [
+    (5, torch.bfloat16, 2048), (9, torch.bfloat16, 1024),
+    (17, torch.bfloat16, 512), (33, torch.bfloat16, 256),
+    (5, torch.float32, 1024), (17, torch.float32, 256),
+    (33, torch.float32, 128), (1024, torch.bfloat16, 16),
+    (512, torch.float32, 16)])
+def test_window_sub_rows_fit_the_slab(d, dtype, sub):
+    """K2's sub-window: the largest power of two <= MAXR rows whose slab
+    fits WINDOW_SLAB_BYTES (tests/test_torch_cuda.py holds it against the
+    kernel's own choice)."""
+    assert tsc.window_sub_rows(d, dtype) == sub
+
+
+@pytest.mark.parametrize("bad", ["wide_bf16", "wide_f32", "wcap", "windows",
+                                 "device"])
+def test_window_wrapper_rejects_bad_inputs(bad):
+    """Rows wider than K2's narrowest slab, a cap above T_IDS, too few
+    windows and a device that is neither the CPU nor CUDA raise ValueError
+    on any device; the CPU path still takes the plain version."""
+    n, d, rows = 64, 4, 3000
+    ids = torch.zeros(n, dtype=torch.int32)
+    perm = torch.arange(n, dtype=torch.int32)
+    g = torch.zeros((n, d))
+    tiles = torch.zeros((3, 2), dtype=torch.int32)
+    wcap, out_dtype = tsc.ALIGN_IDS, None
+    assert tsc.window_scatter_add(ids, perm, g, tiles, rows, wcap).shape == (
+        rows, d)
+    if bad == "wide_bf16":
+        g, out_dtype = torch.zeros((n, 1025)), torch.bfloat16
+    elif bad == "wide_f32":
+        g = torch.zeros((n, 513))
+    elif bad == "wcap":
+        wcap = tsc.T_IDS + 1
+    elif bad == "windows":
+        rows = 2 * tsc.MAXR + 1
+    else:
+        ids, perm, g, tiles = (x.to("meta") for x in (ids, perm, g, tiles))
+    with pytest.raises(ValueError):
+        tsc.window_scatter_add(ids, perm, g, tiles, rows, wcap, out_dtype)

@@ -11,7 +11,8 @@ sorts.  Device side:
   live stream).  CUDA source: csrc/range_scatter.cu.
 * **K2** ``window_scatter_add`` replaces the Pallas window kernel
   (wide_deep_tpu/ops/scatter.py::window_scatter_add): the same sum over
-  fixed write-only windows of MAXR rows.  CUDA source: csrc/window_scatter.cu.
+  fixed write-only windows of MAXR rows, one block per sub-window of
+  ``window_sub_rows`` rows.  CUDA source: csrc/window_scatter.cu.
 
 Both are bound by bytes on the card (the id stream, the permutation and the
 gradient rows read once, the dense [rows, D] output written once); the notes
@@ -48,6 +49,8 @@ PALLAS_SCATTER_MIN_IDS = 1 << 17   # range plans for streams at least this
                                    # package's FeaturePlan)
 PALLAS_WINDOW_MIN_IDS = 1 << 16    # window plans likewise
 COMPACT_FRAC = 0.875               # live-cap fraction (see live_cap)
+WINDOW_SLAB_BYTES = 32 * 1024      # K2's shared-memory slab per block
+WINDOW_MIN_SUB_ROWS = 16           # K2's narrowest sub-window
 
 range_launches = 0         # K1 kernel launches
 range_launches_by_width: Dict[int, int] = {}   # the same, by D
@@ -300,6 +303,16 @@ def _lib_window():
     return fn
 
 
+def kernel_window_sub_rows(d: int, out_dtype: torch.dtype) -> int:
+    """The sub-window rows csrc/window_scatter.cu launches K2 with for rows
+    of ``d`` ``out_dtype`` elements (0: it refuses them); builds the kernel
+    library.  ``window_sub_rows`` must agree with it."""
+    fn = cuda_build.library("window_scatter").wdt_window_sub_rows
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, torch.finfo(out_dtype).bits // 8)
+
+
 def _require_cuda(t: torch.Tensor, what: str):
     if t.device.type != "cuda":
         raise ValueError(f"{what}: tensors must be on the CPU (plain "
@@ -338,6 +351,24 @@ def range_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
     return out
 
 
+def window_sub_rows(d: int, out_dtype: torch.dtype) -> int:
+    """K2's sub-window: the largest power of two <= MAXR rows whose slab of
+    [rows, d] ``out_dtype`` elements fits WINDOW_SLAB_BYTES: the host's
+    copy of the kernel's choice (``kernel_window_sub_rows``), so that the
+    wrapper refuses on any device what the kernel would.  Raises ValueError
+    for rows wider than a slab of WINDOW_MIN_SUB_ROWS rows holds."""
+    row_bytes = d * (torch.finfo(out_dtype).bits // 8)
+    sub = MAXR
+    while sub > WINDOW_MIN_SUB_ROWS and sub * row_bytes > WINDOW_SLAB_BYTES:
+        sub //= 2
+    if sub * row_bytes > WINDOW_SLAB_BYTES:
+        raise ValueError(
+            f"window_scatter_add takes rows of at most "
+            f"{WINDOW_SLAB_BYTES // WINDOW_MIN_SUB_ROWS} bytes; D={d} in "
+            f"{out_dtype} is {row_bytes}")
+    return sub
+
+
 def window_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
                        g_flat: torch.Tensor, tiles: torch.Tensor, rows: int,
                        wcap: int, out_dtype: Optional[torch.dtype] = None
@@ -346,7 +377,8 @@ def window_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
     int32 [3, nt]: starts, offs, counts of window t = rows [t*MAXR,
     (t+1)*MAXR), each holding <= ``wcap`` ids).  CPU tensors take the plain
     version; CUDA tensors launch csrc/window_scatter.cu, which writes every
-    output element once."""
+    output element once.  Raises ValueError, on any device, for rows wider
+    than the kernel takes (``window_sub_rows``)."""
     global window_launches
     out_dtype = out_dtype or g_flat.dtype
     _check_stream(ids_sorted, perm, g_flat, tiles, 3, rows, out_dtype)
@@ -354,6 +386,7 @@ def window_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
         raise ValueError(f"{tiles.shape[1]} windows cannot cover {rows} rows")
     if not 0 < wcap <= T_IDS:
         raise ValueError(f"wcap must be in (0, {T_IDS}], got {wcap}")
+    window_sub_rows(g_flat.shape[1], out_dtype)
     if g_flat.device.type == "cpu":
         return window_scatter_add_plain(ids_sorted, perm, g_flat, rows,
                                         out_dtype)
