@@ -15,9 +15,12 @@ line each on stdout:
    uids, P2 again at that shape in bfloat16, P1 (resident gather) at its
    tool's shape (2^20 ids from a [25600, 8] pool): each against its plain
    PyTorch version on the same inputs, with its time from CUDA events
-   beside the plain version's, one PyTorch library call's and the bound
-   (K2's line gives the sub-window the kernel launches with, which must be
-   the one its wrapper assumes);
+   beside the plain version's, one PyTorch library call's and the bound,
+   and the device time of the kernel and of the library call from a
+   torch.profiler window of 10 more calls each (the event time less the
+   device time is the wrapper's host time); K1 and K2 are each called twice
+   and must give the same bits (K2's line gives the sub-window the kernel
+   launches with, which must be the one its wrapper assumes);
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
    pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
    5 steps on seeded synthetic batches; every step, each read on its own,
@@ -27,8 +30,9 @@ line each on stdout:
    must stay finite, touched d32 rows must change and an untouched one not;
    then (2c, after the launch counts are read) torch.profiler over 3 more
    steps: wall time, the device's busy share, the top kernels by device
-   time, and the device time of the port's own kernels in the step (the
-   Chrome trace goes to build/step_trace.json);
+   time, and the device time of the port's own kernels in the step, with
+   the device's memsets (K1 clears its output with one; the Chrome trace
+   goes to build/step_trace.json);
 3. the probes' path: ``main`` of the port's two microbenchmark tools,
    in-process on the card as a user runs them (P1's; P2's in float32 and
    with ``bf16``), each of which checks its kernel against the plain
@@ -53,9 +57,10 @@ BATCH = 25600
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 BF16_TOL = 2.0 ** -7           # one bfloat16 ulp, relative
-# csrc kernels a train step launches (K1 with its bf16 cast, K2, K3)
-PORTED_STEP_KERNELS = ("range_scatter_kernel", "cast_bf16_kernel",
-                       "window_scatter_kernel", "rowdma_kernel")
+# csrc kernels a train step launches (K1's chunk and carry passes, K2, K3)
+# and the device's memsets (K1 clears its output with one)
+PORTED_STEP_KERNELS = ("range_chunk_kernel", "range_carry_kernel",
+                       "window_scatter_kernel", "rowdma_kernel", "Memset")
 
 
 def log(msg):
@@ -68,13 +73,53 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dev_us(e):
+    """A profiler entry's own device time in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, calls=10):
+    """Device time of one ``fn()`` by what ran: every kernel, memset and
+    copy on the card in a torch.profiler window around ``calls`` calls ->
+    {short name: ms per call}."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and dev_us(e) > 0:
+            m = re.search(r"(\w+)[<(]", e.key)
+            name = m.group(1) if m else e.key.split(" (")[0]
+            parts[name] = parts.get(name, 0.0) + dev_us(e) / 1e3 / calls
+    return parts
+
+
+def bits(t):
+    import torch
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
-                  in_bytes_per_el, extra_bytes, source, replaces):
-    """Hold one scatter kernel against its plain version and time it."""
+                  in_bytes_per_el, extra_bytes, source, replaces,
+                  memset=False):
+    """Hold one scatter kernel against its plain version, require the same
+    bits from two calls, and time it.  ``memset``: the kernel clears its
+    output first; the row then also gives the bound with those bytes."""
     import torch
     got = fn()
+    again = fn()
     want = plain()
     torch.cuda.synchronize()
+    if not torch.equal(bits(got), bits(again)):
+        raise SystemExit(f"{name}: two calls gave different bits")
     gf, wf = got.float(), want.float()
     err = (gf - wf).abs()
     if out_dtype == torch.bfloat16:
@@ -88,8 +133,12 @@ def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
     out_es = torch.finfo(out_dtype).bits // 8
     n_bytes = n_live * (4 + 4 + d * in_bytes_per_el) + rows * d * out_es \
         + extra_bytes
-    return timed_row(name, source, replaces, max_err, tol_text, ok, fn,
-                     plain, library, n_bytes, n_live * d)
+    row = timed_row(name, source, replaces, max_err, tol_text, ok, fn,
+                    plain, library, n_bytes, n_live * d)
+    if memset:
+        row["bound_ms_with_memset"] = bound_ms(
+            n_bytes + rows * d * out_es, n_live * d)[0]
+    return row
 
 
 def check_writeback(name, fn, table, uids, new_rows, source, replaces):
@@ -126,7 +175,8 @@ def timed_row(name, source, replaces, max_err, tol_text, ok, fn, plain,
               library, n_bytes, n_ops):
     """One kernel's row of the kernels line: its time, the plain
     version's, the library call's (each the median of 20 runs by CUDA
-    events, the tools' timer) and the bound; logged on one line."""
+    events, the tools' timer), the kernel's and the library call's device
+    time (``device_ms``) and the bound; logged on one line."""
     import torch
 
     from wide_deep_tpu_torch.tools import median_ms
@@ -138,10 +188,16 @@ def timed_row(name, source, replaces, max_err, tol_text, ok, fn, plain,
            "ms": median_ms(fn, 20, dev), "plain_ms": median_ms(plain, 20, dev),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": median_ms(library, 20, dev)}
+    parts, lib_parts = device_ms(fn), device_ms(library)
+    row["device_ms"] = sum(parts.values())
+    row["library_device_ms"] = sum(lib_parts.values())
     log(f"phase 1: {name}: max_abs_err {max_err:.3g} ({tol_text}) "
         f"{'ok' if ok else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}); on the device: kernel "
+        f"{row['device_ms']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"), library {row['library_device_ms']:.4f} ms")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version")
     return row
@@ -188,7 +244,7 @@ def phase_kernels(plan, batch, device):
                                                     in_dt),
             lambda: torch.zeros((rows, width), dtype=in_dt,
                                 device=device).index_add_(0, lib_ids, lib_g),
-            in_dt, n_live, width, rows, 2, tiles.numel() * 4, src, rep))
+            in_dt, n_live, width, rows, 2, 0, src, rep, memset=True))
     # d32 compact sum of the fused sparse optimizer: f32 in and out
     ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
         "sopt", 32, 32, torch.float32, BATCH * plan.group_packed_len[32])
@@ -201,7 +257,7 @@ def phase_kernels(plan, batch, device):
                                                 torch.float32),
         lambda: torch.zeros((n, 32), dtype=torch.float32,
                             device=device).index_add_(0, lib_ids, lib_g),
-        torch.float32, n_live, 32, n, 4, tiles.numel() * 4, src, rep))
+        torch.float32, n_live, 32, n, 4, 0, src, rep, memset=True))
     # K2 at the d16 shape
     g16 = groups[16]
     if int(batch["wscat_ok_d16"][0]) != 1:
@@ -451,10 +507,6 @@ def profile_steps(trainer, rng, n_steps=3):
             trainer.train_batch(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     # the kernels' own entries (device type CUDA), so no time counts twice
     kernels = sorted((e for e in prof.key_averages()

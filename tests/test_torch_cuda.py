@@ -10,8 +10,8 @@ float32 sum once); float32 outputs, kernel and plain version alike, within
 1e-6 of each row's sum of magnitudes from the float64 sum of the same
 inputs (float32 round-off grows with the magnitudes summed, not with what
 is left after they cancel, and the plain version's atomic adds on the card
-sum in a different order on every call); K2 bitwise equal to itself from
-call to call; K3, P1 and P2 exact.
+sum in a different order on every call); K1 and K2 bitwise equal to
+themselves from call to call; K3, P1 and P2 exact.
 The case generators are shared with tests/test_torch_scatter.py and
 tests/test_torch_probes.py.
 """
@@ -55,11 +55,36 @@ def _weights(n, rng):
     return w
 
 
-def _range_case(kind, n, rows, d, dtype, seed):
+def _k1_case(kind, n, rows, d, dtype, seed):
+    """-> (stream arrays {ids, perm, tiles}, output rows, g, float64 sum,
+    float64 sum of magnitudes) for one of RANGE_CASES."""
     rng = np.random.default_rng(seed)
-    ids = _ids(kind, n, rows, rng)
-    plan = tsc.make_scatter_plan(ids, rows, _weights(n, rng))
-    return (plan,) + _grads(plan, n, rows, d, dtype, rng)
+    if kind in ("uniform", "skewed", "clustered"):
+        plan = tsc.make_scatter_plan(_ids(kind, n, rows, rng), rows,
+                                     _weights(n, rng))
+    elif kind == "compact":   # the fused optimizer's dedup ranks, all live
+        ids = (rng.zipf(1.5, n) % 7000).astype(np.int32)
+        plan = tsc.make_compact_plan(ids, 1 << 22)
+        rows = n
+    else:
+        if kind == "repeated":   # one id in 2/3 of the stream: a run over
+            hot = 2 * n // 3     # many chunks (20,000 ids: ~625 of them)
+            ids = np.concatenate([np.full(hot, rows // 4),
+                                  rng.integers(0, rows, n - hot)])
+            ids = rng.permutation(ids).astype(np.int32)
+            w = None
+        else:                    # "sentinels": 70% weight-0 padding
+            ids = rng.integers(0, rows, n).astype(np.int32)
+            w = (rng.random(n) < 0.3).astype(np.float32)
+        plan = tsc.make_scatter_plan(ids, rows, w)
+    plan = {k: plan[k] for k in ("ids", "perm", "tiles")}
+    return (plan, rows) + _grads(plan, n, rows, d, dtype, rng)
+
+
+# K1 cases: (kind, n, rows); n is far above the kernel's 32-position chunk
+RANGE_CASES = [("skewed", 20000, 5000), ("uniform", 20000, 30000),
+               ("clustered", 20000, 12000), ("repeated", 30000, 5000),
+               ("sentinels", 20000, 8000), ("compact", 20000, None)]
 
 
 # K2 cases: odd rows, so with an odd D the last, partial sub-window's byte
@@ -103,28 +128,82 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _check_k1(out, want, ref, abs_sum):
+    """bfloat16: within one bf16 ulp of the plain version and of the float64
+    sum (plus float32 round-off); float32: kernel and plain version within
+    1e-6 of each row's sum of magnitudes from the float64 sum."""
+    got = out.double().cpu().numpy()
+    if out.dtype == torch.bfloat16:
+        tol = BF16_ULP * want.float().abs() + 1e-5
+        assert bool(((out.float() - want.float()).abs() <= tol).all())
+        err = np.abs(got - ref)
+        assert (err <= BF16_ULP * np.abs(ref) + 1e-6 * abs_sum + 1e-5).all()
+    else:
+        tol = 1e-6 * abs_sum + 1e-6
+        for x in (got, want.double().cpu().numpy()):
+            err = np.abs(x - ref)
+            assert (err <= tol).all(), float((err / (abs_sum + 1e-30)).max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,dtype", [(9, torch.bfloat16), (32, torch.float32)])
-def test_cuda_range_kernel_matches_plain(cuda_device, d, dtype):
-    plan, g, ref, abs_sum = _range_case("skewed", 20000, 5000, d, dtype,
-                                        seed=1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [5, 9, 32, 33])
+@pytest.mark.parametrize("kind,n,rows", RANGE_CASES)
+def test_cuda_range_kernel_matches_plain(cuda_device, kind, n, rows, d,
+                                         dtype):
+    """K1 on streams whose runs cross chunk edges (skewed; one id 20,000
+    times), leave rows untouched (uniform, clustered), end in a long tail
+    of sentinels, or come from a compact plan; g and out in ``dtype``.  Two
+    calls give the same bits and add one launch each."""
+    plan, rows, g, ref, abs_sum = _k1_case(kind, n, rows, d, dtype, seed=1)
     tp = {k: torch.from_numpy(v).to(cuda_device) for k, v in plan.items()}
     g = g.to(cuda_device)
     before = tsc.range_launches
     before_d = tsc.range_launches_by_width.get(d, 0)
-    out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], 5000)
-    want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, 5000)
+    out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], rows)
+    again = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"],
+                                  rows)
+    want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
     torch.cuda.synchronize()
-    assert tsc.range_launches == before + 1
-    assert tsc.range_launches_by_width[d] == before_d + 1
-    if dtype == torch.bfloat16:
-        tol = BF16_ULP * want.float().abs() + 1e-5
-        assert bool(((out.float() - want.float()).abs() <= tol).all())
-    else:
-        tol = 1e-6 * abs_sum + 1e-6
-        for got in (out, want):
-            err = np.abs(got.double().cpu().numpy() - ref)
-            assert (err <= tol).all(), float((err / (abs_sum + 1e-30)).max())
+    assert tsc.range_launches == before + 2
+    assert tsc.range_launches_by_width[d] == before_d + 2
+    assert out.dtype == dtype and out.shape == (rows, d)
+    assert torch.equal(_bits(out), _bits(again))
+    _check_k1(out, want, ref, abs_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_cuda_range_kernel_takes_every_width(cuda_device, g_dtype,
+                                             out_dtype):
+    """K1 at every width 1-70 (one, two and three column passes) in each
+    pair of gradient and output types."""
+    for d in range(1, 71):
+        plan, rows, g, ref, abs_sum = _k1_case("skewed", 3000, 400, d,
+                                               g_dtype, seed=d)
+        tp = {k: torch.from_numpy(v).to(cuda_device) for k, v in plan.items()}
+        g = g.to(cuda_device)
+        out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"],
+                                    rows, out_dtype)
+        want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows,
+                                           out_dtype)
+        assert out.dtype == out_dtype and out.shape == (rows, d)
+        _check_k1(out, want, ref, abs_sum)
+
+
+@pytest.mark.cuda
+def test_cuda_range_scratch_matches_the_kernel(cuda_device):
+    """The wrapper sizes K1's scratch as the kernel counts it."""
+    for n in (0, 1, 31, 32, 33, 25600, 1024000):
+        for d in (1, 5, 9, 32, 33, 64):
+            assert tsc.kernel_range_scratch_floats(n, d) == \
+                tsc.range_scratch_floats(n, d), (n, d)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,7 @@ import wide_deep_tpu.ops.scatter as jsc  # noqa: E402
 import wide_deep_tpu_torch.ops.scatter as tsc  # noqa: E402
 from wide_deep_tpu.ops.rowdma import rowdma_scatter_rows as j_rowdma  # noqa: E402
 from wide_deep_tpu_torch.ops import rowdma as trowdma  # noqa: E402
-from test_torch_cuda import (BF16_ULP, CASES, _ids, _range_case,  # noqa: E402
+from test_torch_cuda import (BF16_ULP, CASES, _ids, _k1_case,  # noqa: E402
                              _weights)
 
 @pytest.mark.parametrize("kind,n,rows", CASES)
@@ -88,7 +88,7 @@ def _check_pallas_bf16(jout, ref, abs_sum, ids, tiles):
                                      (32, torch.float32),
                                      (17, torch.float32)])
 def test_plain_range_matches_pallas(kind, n, rows, d, dtype):
-    plan, g, ref, abs_sum = _range_case(kind, n, rows, d, dtype, seed=d)
+    plan, rows, g, ref, abs_sum = _k1_case(kind, n, rows, d, dtype, seed=d)
     tp = {k: torch.from_numpy(v) for k, v in plan.items()}
     out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], rows)
     assert out.dtype == dtype and out.shape == (rows, d)
@@ -103,6 +103,32 @@ def test_plain_range_matches_pallas(kind, n, rows, d, dtype):
         np.testing.assert_allclose(out.numpy(), jout, rtol=1e-5, atol=1e-5)
     else:
         _check_bf16(out.float().numpy(), ref)
+        _check_pallas_bf16(jout, ref, abs_sum, plan["ids"], plan["tiles"])
+
+
+@pytest.mark.parametrize("kind,n,rows", [("repeated", 3000, 300),
+                                         ("sentinels", 3000, 900)])
+@pytest.mark.parametrize("d,dtype", [(9, torch.bfloat16), (32, torch.float32)])
+def test_plain_range_edge_streams_match_pallas(kind, n, rows, d, dtype):
+    """K1's edge streams (tests/test_torch_cuda.py runs the kernel on them):
+    one run over 2/3 of the stream, 70% weight-0 sentinels.  Float32 round-off grows with the magnitudes a long run sums, so
+    the tolerances are relative to each row's sum of magnitudes."""
+    plan, rows, g, ref, abs_sum = _k1_case(kind, n, rows, d, dtype, seed=d)
+    tp = {k: torch.from_numpy(v) for k, v in plan.items()}
+    out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], rows)
+    assert out.dtype == dtype and out.shape == (rows, d)
+    g_sorted = jnp.take(_jax_array(g), jnp.asarray(plan["perm"]), axis=0)
+    t = plan["tiles"]
+    jout = np.asarray(jsc.range_scatter_add(
+        jnp.asarray(plan["ids"]), g_sorted,
+        *(jnp.asarray(t[i]) for i in range(4)), rows,
+        interpret=True).astype(jnp.float32))
+    err = np.abs(out.double().numpy() - ref)
+    if dtype == torch.float32:
+        assert (err <= 1e-6 * abs_sum + 1e-6).all()
+        assert (np.abs(jout - ref) <= 1e-6 * abs_sum + 1e-6).all()
+    else:
+        assert (err <= BF16_ULP * np.abs(ref) + 1e-6 * abs_sum + 1e-5).all()
         _check_pallas_bf16(jout, ref, abs_sum, plan["ids"], plan["tiles"])
 
 
@@ -219,6 +245,16 @@ def test_range_wrapper_rejects_bad_inputs(bad):
         ids, perm, g, tiles = (x.to("meta") for x in (ids, perm, g, tiles))
     with pytest.raises(ValueError):
         tsc.range_scatter_add(ids, perm, g, tiles, rows, out_dtype)
+
+
+@pytest.mark.parametrize("n,d,floats", [
+    (0, 9, 0), (1, 9, 20), (32, 9, 20), (33, 9, 40),
+    (25600, 32, 800 * 66), (1024000, 9, 32000 * 20)])
+def test_range_scratch_counts_chunks(n, d, floats):
+    """K1's scratch: per chunk of 32 stream positions, two ints of meta
+    and two float32 partial rows (tests/test_torch_cuda.py holds it against
+    the kernel's own count)."""
+    assert tsc.range_scratch_floats(n, d) == floats
 
 
 @pytest.mark.parametrize("bad", ["width", "dtype", "uids"])

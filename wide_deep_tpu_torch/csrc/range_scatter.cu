@@ -1,98 +1,284 @@
-// K1: sorted-stream scatter-add under a range plan.
+// K1: sorted-stream scatter-add, as a chunked segmented sum.
 //
 // Replaces wide_deep_tpu/ops/scatter.py::range_scatter_add (Pallas body
 // _kernel), which computes zeros[rows, D].at[ids_sorted].add(g_sorted) with
-// one-hot MXU matmuls over a sequential grid of tiles.  Here every tile is
-// one block, and the blocks run in parallel:
+// one-hot MXU matmuls over a sequential grid of range tiles.  Here the sum
+// is out[ids[i]] += g[perm[i]] over the sorted stream, in float32, each
+// output row rounded once to the output type; ids outside [0, rows) (the
+// plan's sentinels, sorted to the tail) drop.  The plan's tiles are not
+// read: the stream's order is all the kernel needs.
 //
-// * Inside a tile the ids are sorted, so each run of equal ids is summed in
-//   float32 registers by one thread per (run, column) and written once.
-//   Reading g[perm[i]] in the kernel avoids materialising g_sorted.
-// * Tiles partition the stream, so only the first and the last run of a
-//   tile can share a row with a neighbouring tile: those two use atomicAdd
-//   into the zeroed float32 accumulator, every other run a plain store.
-// * A bfloat16 output takes one cast pass over the accumulator, so each
-//   row is rounded once (the TPU kernel rounds once per tile it touches).
-//
-// Bound on the card: bytes.  The ids, the permutation and the gradient rows
-// are read once and the [rows, D] output written once; the float32
-// accumulator adds its zeroing and one re-read for bfloat16 outputs.
+// Bound on the card: bytes (the ids, the permutation and the gradient rows
+// read once, the [rows, D] output written once).  In practice the gather of
+// gradient rows in stream order bounds it: they lie at random, and a row of
+// 9 bfloat16 (d8) touches one or two 32-byte sectors for 18 bytes.  The
+// design:
+//   * balanced chunks: warp w of block b owns the kChunk = 32 stream
+//     positions of chunk c = b * kWarps + w, one per lane, whatever the runs
+//     of equal ids look like (a plan tile's count no longer sets anyone's
+//     work), and each warp works alone: no block barrier.  Block row y
+//     (gridDim.y of them) takes the columns [c0, c0 + nc) of its chunks,
+//     one 32-byte sector of a gradient row each (d32 float32: 4 column
+//     groups, so 25,600 positions are 3,200 warps; d8 and d4 bfloat16: 1);
+//   * a lane loads its position's id and perm, and the neighbours' ids come
+//     by shuffles; the gradient rows of live positions (the sentinels' rows
+//     are never read) are staged in the warp's shared-memory slab as
+//     float32, item k = (position, column) by lane k % 32, so neighbouring
+//     lanes read neighbouring columns of one row;
+//   * the runs are summed column by column by a segmented inclusive scan of
+//     warp shuffles: no lane walks a run, however long it is, and the order
+//     of the adds depends only on the positions, so every call gives the
+//     same bits;
+//   * each run's sums go back to the slab at its tail and leave the same way
+//     they came, item by item over the run tails in order: a run that starts
+//     and ends in the chunk is rounded once and stored straight into the
+//     output, in its type (no float32 accumulator over the table and no cast
+//     pass);
+//   * a run cut by a chunk edge leaves its float32 partial in a scratch slot
+//     of its chunk (slot 0: the chunk's first run, begun in an earlier
+//     chunk; slot 1: its last run, begun here and going on).  A second
+//     kernel, one warp per chunk, lets the chunk that holds such a run's head
+//     add the later chunks' partials in chunk order and store the row once.
+//     A run over many chunks (a hot row) is the same case;
+//   * rows that no id touches are zero: the C entry clears the output with
+//     cudaMemsetAsync before the first launch.
+// No atomics anywhere.  What each choice bought on an H100 (a block-wide
+// chunk of 256 with barriers, registers per warp, the column groups) is in
+// PERF.md, under K1's redesign.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kChunk = 32;   // stream positions per chunk: a lane each
+constexpr int kWarps = 8;    // chunks (warps) per block of both kernels
+constexpr int kCols = 16;    // most columns a chunk's warp takes (32 bytes
+                             // of bfloat16; 8 float32 columns take 32)
+constexpr unsigned kFull = 0xffffffffu;
 
-// tiles: int32 [4, nt] = starts, offs, counts, row_los.  The live ids of
-// tile t are ids[starts[t] + offs[t] + i] for i < counts[t].
-template <typename T>
-__global__ void range_scatter_kernel(const int* __restrict__ ids,
-                                     const int* __restrict__ perm,
-                                     const T* __restrict__ g,
-                                     const int* __restrict__ tiles, int nt,
-                                     int rows, int d,
-                                     float* __restrict__ acc) {
-  const int t = blockIdx.x;
-  const int count = tiles[2 * nt + t];
-  if (count <= 0) return;  // trailing empty tiles
-  const int base = tiles[t] + tiles[nt + t];
-  const int64_t work = (int64_t)count * d;
-  for (int64_t w = threadIdx.x; w < work; w += blockDim.x) {
-    const int i = (int)(w / d);
-    const int c = (int)(w - (int64_t)i * d);
-    const int row = ids[base + i];
-    if (i > 0 && ids[base + i - 1] == row) continue;  // not a run head
-    float sum = wdt::load_f(g, (int64_t)perm[base + i] * d + c);
-    int j = i + 1;
-    while (j < count && ids[base + j] == row) {
-      sum += wdt::load_f(g, (int64_t)perm[base + j] * d + c);
-      ++j;
+// meta[b] = (flags, the id of chunk b's last position)
+constexpr int kOwner = 1;    // the last run began here and goes on: slot 1
+constexpr int kThrough = 2;  // the chunk is one run that began earlier and
+                             // goes on: slot 0
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kWarps * 32)
+    range_chunk_kernel(const int* __restrict__ ids,
+                       const int* __restrict__ perm,
+                       const T* __restrict__ g, int n, int rows, int d,
+                       O* __restrict__ out, float* __restrict__ partial,
+                       int2* __restrict__ meta) {
+  __shared__ float s_slab[kWarps][kChunk * (kCols + 1)];  // a warp's [32, nc]
+  __shared__ int s_tail_lane[kWarps][kChunk];  // r-th run tail: lane | where
+  __shared__ int s_tail_id[kWarps][kChunk];    // ... and its id
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  const int s = b * kChunk;
+  if (s >= n) return;  // the whole warp
+  const int m = min(kChunk, n - s);  // positions in this chunk
+  int id = -1;
+  int pr = 0;
+  if (lane < m) {
+    id = ids[s + lane];
+    pr = perm[s + lane];
+  }
+  const int before = s > 0 ? ids[s - 1] : -1;
+  const int after = kChunk < n - s ? ids[s + kChunk] : -1;
+  int prev = __shfl_up_sync(kFull, id, 1);
+  int next = __shfl_down_sync(kFull, id, 1);
+  if (lane == 0) prev = before;
+  if (lane == 31) next = after;
+  const int first = __shfl_sync(kFull, id, 0);
+  const int last = __shfl_sync(kFull, id, m - 1);
+  const bool live = (unsigned)id < (unsigned)rows;
+  const bool tail = live && (lane == m - 1 || next != id);  // in the chunk
+  // the run ending here began in an earlier chunk / goes on into the next
+  const bool cut_lo = live && id == first && before == id;
+  const bool cut_hi = live && lane == m - 1 && next == id;
+  if (lane == 0 && blockIdx.y == 0) {
+    const bool lo = (unsigned)first < (unsigned)rows && before == first;
+    const bool hi = (unsigned)last < (unsigned)rows && m == kChunk &&
+                    after == last;
+    const bool single = first == last;
+    meta[b] = make_int2((hi && !(single && lo) ? kOwner : 0) |
+                            (hi && single && lo ? kThrough : 0),
+                        last);
+  }
+  // segments start at run heads and at lane 0
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != id);
+  const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
+  // the run tails in position order, and where each one's sums go
+  const unsigned tails = __ballot_sync(kFull, tail);
+  const int n_tails = __popc(tails);
+  if (tail) {
+    const int rank = __popc(tails & ((1u << lane) - 1));
+    s_tail_lane[warp][rank] = lane | (cut_lo ? 1 : cut_hi ? 2 : 0) << 8;
+    s_tail_id[warp][rank] = id;
+  }
+
+  // this block row's columns [c0, c0 + nc), nc <= kCols; item k of the
+  // [32, nc] slab is (q, c) = divmod(k, nc), stepped without dividing
+  const int c0 = (int)((int64_t)d * blockIdx.y / gridDim.y);
+  const int nc = (int)((int64_t)d * (blockIdx.y + 1) / gridDim.y) - c0;
+  const int stride = nc | 1;  // odd: a lane's own slab row is conflict-free
+  const int q_step = kChunk / nc;
+  const int c_step = kChunk - q_step * nc;
+  float* slab = s_slab[warp];
+  int q = lane / nc;
+  int c = lane - q * nc;
+  const int items = m * nc;
+#pragma unroll 8
+  for (int base = 0; base < items; base += kChunk) {
+    const int idq = __shfl_sync(kFull, id, q & 31);
+    const int pq = __shfl_sync(kFull, pr, q & 31);
+    if (base + lane < items) {
+      slab[q * stride + c] = (unsigned)idq < (unsigned)rows
+                                 ? wdt::load_f(g, (int64_t)pq * d + c0 + c)
+                                 : 0.f;
     }
-    if (row < 0 || row >= rows) continue;  // outside the plan contract
-    float* dst = acc + (int64_t)row * d + c;
-    if (i == 0 || j == count) {
-      atomicAdd(dst, sum);  // the row may continue in a neighbouring tile
-    } else {
-      *dst = sum;  // the whole run lies in this tile
+    q += q_step;
+    c += c_step;
+    if (c >= nc) {
+      c -= nc;
+      ++q;
+    }
+  }
+  __syncwarp();
+  // segmented inclusive scan of each column; a run's sum lands at its tail
+#pragma unroll 4
+  for (int j = 0; j < nc; ++j) {
+    float x = live ? slab[lane * stride + j] : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(kFull, x, off);
+      if (lane - off >= start) x += up;
+    }
+    if (tail) slab[lane * stride + j] = x;
+  }
+  __syncwarp();
+  // item k = (r, c): column c of the r-th run tail's sums
+  int r = lane / nc;
+  c = lane - r * nc;
+  const int out_items = n_tails * nc;
+#pragma unroll 4
+  for (int base = 0; base < out_items; base += kChunk) {
+    if (base + lane < out_items) {
+      const int e = s_tail_lane[warp][r];
+      const float x = slab[(e & 0xff) * stride + c];
+      if (e >> 8) {  // a cut run: its partial, in slot (e >> 8) - 1
+        partial[((int64_t)b * 2 + (e >> 8) - 1) * d + c0 + c] = x;
+      } else {
+        wdt::store_f(out, (int64_t)s_tail_id[warp][r] * d + c0 + c, x);
+      }
+    }
+    r += q_step;
+    c += c_step;
+    if (c >= nc) {
+      c -= nc;
+      ++r;
     }
   }
 }
 
-__global__ void cast_bf16_kernel(const float* __restrict__ acc,
-                                 __nv_bfloat16* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = __float2bfloat16(acc[i]);
+// One warp per chunk.  The chunk that holds the head of a run cut at its
+// end (kOwner) sums its partial and those of the chunks the run reaches,
+// in chunk order, and stores the row.
+template <typename O>
+__global__ void __launch_bounds__(kWarps * 32)
+    range_carry_kernel(const float* __restrict__ partial,
+                       const int2* __restrict__ meta, int n_chunks, int d,
+                       O* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= n_chunks) return;
+  const int2 mb = meta[b];
+  if (!(mb.x & kOwner)) return;
+  // the run ends in the first chunk after b that it does not pass through;
+  // the stream's last chunk never passes a run on
+  int end = b + 1;
+  for (int base = b + 1;; base += 32) {
+    const int k = base + lane;
+    const bool through = k < n_chunks && (meta[k].x & kThrough);
+    const unsigned stop = __ballot_sync(kFull, !through);
+    if (stop) {
+      end = base + __ffs(stop) - 1;
+      break;
+    }
+  }
+  O* dst = out + (int64_t)mb.y * d;
+  for (int c = lane; c < d; c += 32) {
+    float sum = partial[((int64_t)b * 2 + 1) * d + c];
+    for (int k = b + 1; k <= end; ++k) sum += partial[(int64_t)k * 2 * d + c];
+    wdt::store_f(dst, c, sum);
+  }
+}
+
+int64_t n_chunks_for(int n) { return ((int64_t)n + kChunk - 1) / kChunk; }
+
+template <typename T, typename O>
+void launch(const int* ids, const int* perm, const T* g, int n, int rows,
+            int d, O* out, float* scratch, cudaStream_t stream) {
+  const int n_chunks = (int)n_chunks_for(n);
+  const int blocks = (n_chunks + kWarps - 1) / kWarps;
+  int2* meta = reinterpret_cast<int2*>(scratch);
+  float* partial = scratch + 2 * (int64_t)n_chunks;
+  // column groups of one 32-byte sector of a gradient row: nc <= kCols
+  const int groups = (int)(((int64_t)d * sizeof(T) + 31) / 32);
+  range_chunk_kernel<T, O><<<dim3(blocks, groups), kWarps * 32, 0, stream>>>(
+      ids, perm, g, n, rows, d, out, partial, meta);
+  range_carry_kernel<O><<<blocks, kWarps * 32, 0, stream>>>(
+      partial, meta, n_chunks, d, out);
+}
+
+template <typename T>
+void launch_out(const int* ids, const int* perm, const T* g, int n, int rows,
+                int d, void* out, int out_bf16, float* scratch,
+                cudaStream_t stream) {
+  if (out_bf16) {
+    launch(ids, perm, g, n, rows, d, static_cast<__nv_bfloat16*>(out),
+           scratch, stream);
+  } else {
+    launch(ids, perm, g, n, rows, d, static_cast<float*>(out), scratch,
+           stream);
   }
 }
 
 }  // namespace
 
-// acc: float32 [rows, d], zeroed by the caller.  out: bfloat16 [rows, d]
-// when out_bf16, else unused (acc is the output).
+// float32 elements of the scratch wdt_range_scatter_add needs for n stream
+// positions of width d: per chunk, its meta (two ints) and two partial rows.
+extern "C" int64_t wdt_range_scratch_floats(int n, int d) {
+  return n_chunks_for(n) * (2 + 2 * (int64_t)d);
+}
+
+// ids, perm: int32 [n], ids sorted; g: [n, d] float32 or bfloat16 (g_bf16);
+// out: [rows, d] float32 or bfloat16 (out_bf16), cleared and then written
+// here; scratch: float32, at least wdt_range_scratch_floats(n, d) of them.
+// One memset and two launches on stream; returns the launch error.
 extern "C" int wdt_range_scatter_add(const int* ids, const int* perm,
-                                     const void* g, int g_bf16,
-                                     const int* tiles, int nt, int rows,
-                                     int d, float* acc, void* out,
-                                     int out_bf16, cudaStream_t stream) {
-  if (nt > 0) {
-    if (g_bf16) {
-      range_scatter_kernel<__nv_bfloat16><<<nt, kThreads, 0, stream>>>(
-          ids, perm, static_cast<const __nv_bfloat16*>(g), tiles, nt, rows,
-          d, acc);
-    } else {
-      range_scatter_kernel<float><<<nt, kThreads, 0, stream>>>(
-          ids, perm, static_cast<const float*>(g), tiles, nt, rows, d, acc);
-    }
+                                     const void* g, int g_bf16, int n,
+                                     int rows, int d, void* out, int out_bf16,
+                                     float* scratch, int64_t scratch_floats,
+                                     cudaStream_t stream) {
+  if (n < 0 || rows < 0 || d < 0 ||
+      scratch_floats < wdt_range_scratch_floats(n, d)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int64_t n = (int64_t)rows * d;
-  if (out_bf16 && n > 0) {
-    int64_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 132 * 32) blocks = 132 * 32;
-    cast_bf16_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-        acc, static_cast<__nv_bfloat16*>(out), n);
+  const size_t bytes = (size_t)rows * d * (out_bf16 ? 2 : 4);
+  if (bytes) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, bytes, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n > 0 && rows > 0 && d > 0) {
+    if (g_bf16) {
+      launch_out(ids, perm, static_cast<const __nv_bfloat16*>(g), n, rows, d,
+                 out, out_bf16, scratch, stream);
+    } else {
+      launch_out(ids, perm, static_cast<const float*>(g), n, rows, d, out,
+                 out_bf16, scratch, stream);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@ sorts.  Device side:
 
 * **K1** ``range_scatter_add`` replaces the Pallas range kernel
   (wide_deep_tpu/ops/scatter.py::range_scatter_add): the sum over a range
-  plan's tiles (<= T_IDS ids each, spanning < MAXR rows, partitioning the
-  live stream).  CUDA source: csrc/range_scatter.cu.
+  plan's sorted stream, as a segmented sum over chunks of RANGE_CHUNK
+  positions, one warp each, whose edge runs are finished by a second
+  pass.  CUDA source: csrc/range_scatter.cu.
 * **K2** ``window_scatter_add`` replaces the Pallas window kernel
   (wide_deep_tpu/ops/scatter.py::window_scatter_add): the same sum over
   fixed write-only windows of MAXR rows, one block per sub-window of
@@ -49,6 +50,7 @@ PALLAS_SCATTER_MIN_IDS = 1 << 17   # range plans for streams at least this
                                    # package's FeaturePlan)
 PALLAS_WINDOW_MIN_IDS = 1 << 16    # window plans likewise
 COMPACT_FRAC = 0.875               # live-cap fraction (see live_cap)
+RANGE_CHUNK = 32                   # K1's stream positions per warp
 WINDOW_SLAB_BYTES = 32 * 1024      # K2's shared-memory slab per block
 WINDOW_MIN_SUB_ROWS = 16           # K2's narrowest sub-window
 
@@ -283,14 +285,30 @@ def range_scatter_add_plain(ids_sorted, perm, g_flat, rows, out_dtype=None):
 window_scatter_add_plain = range_scatter_add_plain  # K2: the same function
 
 
+def range_scratch_floats(n: int, d: int) -> int:
+    """float32 elements of K1's scratch for ``n`` stream positions of width
+    ``d``: per chunk of RANGE_CHUNK positions, its meta (two ints) and two
+    partial rows (``kernel_range_scratch_floats`` is the kernel's own)."""
+    return -(-n // RANGE_CHUNK) * (2 + 2 * d)
+
+
 def _lib_range():
     lib = cuda_build.library("range_scatter")
     fn = lib.wdt_range_scatter_add
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, i, i, i, p, p, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, p, i, p, ctypes.c_int64, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_range_scratch_floats(n: int, d: int) -> int:
+    """The scratch csrc/range_scatter.cu needs (``range_scratch_floats``
+    must agree with it); builds the kernel library."""
+    fn = cuda_build.library("range_scatter").wdt_range_scratch_floats
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int64
+    return fn(n, d)
 
 
 def _lib_window():
@@ -326,8 +344,10 @@ def range_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
     """K1: ``zeros[rows, D].at[ids_sorted].add(g_flat[perm])`` under a range
     plan (``tiles`` int32 [4, nt]: starts, offs, counts, row_los) -> a new
     [rows, D] tensor in ``out_dtype`` (default: g's dtype), summed in
-    float32.  CPU tensors take the plain version; CUDA tensors launch
-    csrc/range_scatter.cu on the current stream."""
+    float32, each row rounded once.  CPU tensors take the plain version;
+    CUDA tensors launch csrc/range_scatter.cu on the current stream, which
+    needs only the sorted stream (the tiles are checked, not read) and
+    gives the same bits on every call."""
     global range_launches
     out_dtype = out_dtype or g_flat.dtype
     _check_stream(ids_sorted, perm, g_flat, tiles, 4, rows, out_dtype)
@@ -336,15 +356,15 @@ def range_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
                                        out_dtype)
     _require_cuda(g_flat, "range_scatter_add")
     fn = _lib_range()
-    d = g_flat.shape[1]
+    n, d = g_flat.shape
     dev = g_flat.device
-    acc = torch.zeros((rows, d), dtype=torch.float32, device=dev)
-    out = (acc if out_dtype == torch.float32
-           else torch.empty((rows, d), dtype=out_dtype, device=dev))
+    out = torch.empty((rows, d), dtype=out_dtype, device=dev)
+    scratch = torch.empty(range_scratch_floats(n, d), dtype=torch.float32,
+                          device=dev)
     err = fn(ids_sorted.data_ptr(), perm.data_ptr(), g_flat.data_ptr(),
-             int(g_flat.dtype == torch.bfloat16), tiles.data_ptr(),
-             tiles.shape[1], rows, d, acc.data_ptr(), out.data_ptr(),
-             int(out_dtype == torch.bfloat16), cuda_build.stream_handle(dev))
+             int(g_flat.dtype == torch.bfloat16), n, rows, d, out.data_ptr(),
+             int(out_dtype == torch.bfloat16), scratch.data_ptr(),
+             scratch.numel(), cuda_build.stream_handle(dev))
     cuda_build.check(err, "range_scatter_add")
     range_launches += 1
     range_launches_by_width[d] = range_launches_by_width.get(d, 0) + 1
