@@ -10,24 +10,26 @@ line each on stdout:
 
 0. the card's name and power limit (nvidia-smi), the kernels' build time;
 1. K1 (range scatter-add) at the production d8, d4 and d32-compact shapes,
-   K2 (window scatter-add) at the d16 shape, K3 (row write-back) and P2
-   (bulk row scatter) on one [10,000,128, 128] float32 table with sentinel
-   uids, P2 again at that shape in bfloat16, P1 (resident gather) at its
-   tool's shape (2^20 ids from a [25600, 8] pool): each against its plain
-   PyTorch version on the same inputs, with its time from CUDA events
-   beside the plain version's, one PyTorch library call's and the bound,
-   and the device time of the kernel and of the library call from a
-   torch.profiler window of 10 more calls each (the event time less the
-   device time is the wrapper's host time); K1 and K2 are each called twice
-   and must give the same bits (K2's line gives the sub-window the kernel
-   launches with, which must be the one its wrapper assumes);
+   K2 (window scatter-add) at the d16 shape, K1 again on that d16 stream as
+   the window plan's ok=0 branch runs it, K3 (row write-back) and P2 (bulk
+   row scatter) on one [10,000,128, 128] float32 table with sentinel uids,
+   P2 again at that shape in bfloat16, P1 (resident gather) at its tool's
+   shape (2^20 ids from a [25600, 8] pool): each against its plain PyTorch
+   version on the same inputs, with its time from CUDA events beside the
+   plain version's, one PyTorch library call's and the bound, and the
+   device time of the kernel and of the library call from a torch.profiler
+   window of 10 more calls each (the event time less the device time is the
+   wrapper's host time); K1 and K2 are each called twice and must give the
+   same bits (K2's line gives the sub-window the kernel launches with, which
+   must be the one its wrapper assumes);
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
    pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
    5 steps on seeded synthetic batches; every step, each read on its own,
    must launch K1 once at each of its three sites (d8, d4, d32 compact) and
-   K2 and K3 once each (a file batch whose d16 plan says ok=0 takes the
-   plan's plain branch instead, and its line says so), losses and params
-   must stay finite, touched d32 rows must change and an untouched one not;
+   K2 and K3 once each, except that a file batch whose d16 plan says ok=0
+   launches K1 on the d16 stream in K2's place (its line says so); losses
+   and params must stay finite, touched d32 rows must change and an
+   untouched one not;
    then (2c, after the launch counts are read) torch.profiler over 3 more
    steps: wall time, the device's busy share, the top kernels by device
    time, and the device time of the port's own kernels in the step, with
@@ -283,6 +285,17 @@ def phase_kernels(plan, batch, device):
         torch.bfloat16, n_live, 17, g16.rows, 2, tiles.numel() * 4,
         "wide_deep_tpu_torch/csrc/window_scatter.cu",
         "wide_deep_tpu/ops/scatter.py:355"))
+    # the d16 window plan's ok=0 branch: K1 on the same stream, no tiles;
+    # timed against today's library call, zeros + index_add_ in bf16
+    rows_out.append(check_scatter(
+        "K1 range_scatter_add d16 ok=0",
+        lambda: scatter.sorted_stream_sum(ids, perm, g, g16.rows,
+                                          torch.bfloat16),
+        lambda: scatter.range_scatter_add_plain(ids, perm, g, g16.rows,
+                                                torch.bfloat16),
+        lambda: torch.zeros((g16.rows, 17), dtype=torch.bfloat16,
+                            device=device).index_add_(0, lib_ids, lib_g),
+        torch.bfloat16, n_live, 17, g16.rows, 2, 0, src, rep, memset=True))
     del ids, perm, tiles, g, lib_ids, lib_g
 
     # K3, then P2, on the production fused table, sentinel uids included
@@ -302,7 +315,7 @@ def phase_kernels(plan, batch, device):
         "wide_deep_tpu/ops/rowdma.py:80"))
     # fresh values for P2: K3's runs already wrote new_rows into the table,
     # and a kernel that wrote nothing would then pass the check
-    p2 =("wide_deep_tpu_torch/csrc/bulk_row_scatter.cu",
+    p2 = ("wide_deep_tpu_torch/csrc/bulk_row_scatter.cu",
           "tools/microbench_rowdma_scatter.py:68")
     table.normal_(generator=gen)
     p2_row = check_writeback("P2 bulk_scatter_rows f32",
@@ -346,16 +359,18 @@ def phase_kernels(plan, batch, device):
 
 
 # K1's call sites on the production step, by the gradient width D they pass
-K1_SITES = {9: "d8", 5: "d4", 32: "d32 compact"}
-# launches each production step must add: K1 once per site, K2 (or the d16
-# plan's ok=0 branch) once, K3 once
-PER_STEP = dict({f"K1 {site}": 1 for site in K1_SITES.values()}, K3=1)
+# (17: the d16 fold's stream, summed by K1 when its window plan says ok=0)
+K1_SITES = {9: "d8", 5: "d4", 32: "d32 compact", 17: "d16 ok=0"}
+# launches each production step must add: K1 once at each of its three
+# range-plan sites, K3 once, and on the d16 stream either K2 (ok=1) or K1
+# (ok=0) once
+PER_STEP = {"K1 d8": 1, "K1 d4": 1, "K1 d32 compact": 1, "K3": 1}
 
 
 def counts():
     from wide_deep_tpu_torch.ops import gather, rowdma, scatter
     out = {"K1": scatter.range_launches, "K2": scatter.window_launches,
-           "K2_plain": scatter.window_plain_launches,
+           "d16 ok=0": scatter.window_ok0_launches,
            "K3": rowdma.rowdma_launches,
            "P1": gather.resident_gather_launches,
            "P2": rowdma.bulk_scatter_launches}
@@ -369,7 +384,7 @@ def reset_counts():
     scatter.range_launches = 0
     scatter.range_launches_by_width.clear()
     scatter.window_launches = 0
-    scatter.window_plain_launches = 0
+    scatter.window_ok0_launches = 0
     rowdma.rowdma_launches = 0
     gather.resident_gather_launches = 0
     rowdma.bulk_scatter_launches = 0
@@ -381,10 +396,12 @@ def delta(before, after):
 
 def check_step(what, d):
     """One production step's counter changes ``d``: K1 once at each of its
-    three sites and nowhere else, K2 or the d16 ok=0 branch once, K3 once,
-    the probes (P1, P2) never."""
-    got = {k: d.get(k, 0) for k in PER_STEP}
-    if (got != PER_STEP or d["K1"] != 3 or d["K2"] + d["K2_plain"] != 1
+    three range-plan sites, K3 once, the probes (P1, P2) never, and on the
+    d16 stream K2 once, or (ok=0) K1 once at D=17 and K2 never."""
+    ok0 = d["d16 ok=0"]
+    want = dict(PER_STEP, **{"K1 d16 ok=0": ok0})
+    got = {k: d.get(k, 0) for k in want}
+    if (got != want or ok0 + d["K2"] != 1 or d["K1"] != 3 + ok0
             or d["P1"] or d["P2"]):
         raise SystemExit(f"{what} launched {d}")
 
@@ -436,8 +453,8 @@ def phase_trainer(card, tmp):
     file_losses = [float(x) for x in trainer.losses]
     log(f"phase 2a: train_file 2 steps in {time.time() - t0:.1f} s, losses "
         f"{file_losses}, launches per step {file_steps}"
-        + (f" (d16 ok=0 on {file_counts['K2_plain']} batch(es): the plan's "
-           f"plain branch)" if file_counts["K2_plain"] else ""))
+        + (f" (d16 ok=0 on {file_counts['d16 ok=0']} batch(es): K1 in "
+           f"K2's place)" if file_counts["d16 ok=0"] else ""))
 
     # (b) five steps on seeded synthetic batches
     rng = np.random.default_rng(1)
@@ -615,7 +632,8 @@ def main():
     torch.cuda.empty_cache()
     tool_counts = phase_tools()
 
-    # K1, K2 and K3 launch on the train path, P1 and P2 on the tools' path
+    # K1 (the d16 ok=0 site on file steps), K2 and K3 launch on the train
+    # path, P1 and P2 on the tools' path
     paths = dict(main_counts, **tool_counts)
     for row in kernels:
         row["launches"] = paths.get(count_key(row["name"]), 0)

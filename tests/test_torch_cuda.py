@@ -317,6 +317,136 @@ def test_cuda_bulk_scatter_rows_matches_plain(cuda_device, r, n, d, dtype):
     assert torch.equal(got, want)
 
 
+def _p2_edge(case, rng):
+    """-> (table rows R, D, dtype, sorted uids) of one P2 edge case."""
+    if case == "row of 7168 bytes":        # the widest row: 2 a round
+        return 3000, 1792, torch.float32, np.sort(rng.choice(3000, 300, False))
+    if case == "one uid":
+        return 500, 128, torch.float32, np.array([7])
+    if case == "n not a multiple of 32":
+        return 5000, 128, torch.float32, np.sort(rng.choice(5000, 77, False))
+    if case == "a chunk of sentinels":     # chunk 2 (uids 64-95) all >= R,
+        return 5000, 128, torch.float32, np.concatenate([  # negatives first
+            [-9, -2], np.sort(rng.choice(5000, 62, False)),
+            5000 + np.arange(40)])
+    if case == "uid R-1":
+        return 5000, 64, torch.bfloat16, np.concatenate([
+            np.sort(rng.choice(4999, 40, False)), [4999]])
+    if case == "bf16 rows of 16 bytes":
+        return 5000, 8, torch.bfloat16, np.concatenate([
+            np.sort(rng.choice(5000, 100, False)), 5000 + np.arange(3)])
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "row of 7168 bytes", "one uid", "n not a multiple of 32",
+    "a chunk of sentinels", "uid R-1", "bf16 rows of 16 bytes"])
+def test_cuda_bulk_scatter_rows_edges(cuda_device, case):
+    """P2 at its edges: exact against the plain version, rows outside the
+    uids untouched."""
+    rng = np.random.default_rng(11)
+    r, d, dtype, uids = _p2_edge(case, rng)
+    uids = torch.from_numpy(uids.astype(np.int32)).to(cuda_device)
+    table = torch.randn((r, d), device=cuda_device).to(dtype)
+    rows = torch.randn((uids.shape[0], d), device=cuda_device).to(dtype)
+    want = trowdma.rowdma_scatter_rows_plain(table.clone(), uids, rows)
+    got = trowdma.bulk_scatter_rows(table, uids, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_bulk_max_row_bytes_matches_the_kernel(cuda_device):
+    """The wrapper refuses rows above the widest the kernel takes."""
+    assert trowdma.kernel_bulk_max_row_bytes() == trowdma.BULK_MAX_ROW_BYTES
+
+
+@pytest.mark.cuda
+def test_cuda_window_plan_ok0_runs_k1(cuda_device):
+    """A window plan with ok=0 (bf16, D=17, the d16 fold's width) is summed
+    by K1: two calls give the same bits, each launches K1 once at D=17 and
+    counts in window_ok0_launches, and both match K1's plain version within
+    one bf16 ulp."""
+    rng = np.random.default_rng(3)
+    n, rows, d = 3000, 30000, 17
+    plan = tsc.make_window_plan(_ids("hot_window", n, rows, rng), rows,
+                                _weights(n, rng))
+    assert plan["ok"][0] == 0
+    g = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda_device)
+    tp = {k: torch.from_numpy(v).to(cuda_device) for k, v in plan.items()
+          if k != "ok"}
+    tp["ok"] = torch.from_numpy(plan["ok"])          # stays on the host
+    before = (tsc.window_ok0_launches, tsc.window_launches,
+              tsc.range_launches_by_width.get(d, 0))
+    out = tsc.apply_window_plan(tp, g, rows)
+    again = tsc.apply_window_plan(tp, g, rows)
+    want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
+    torch.cuda.synchronize()
+    assert (tsc.window_ok0_launches, tsc.window_launches,
+            tsc.range_launches_by_width[d]) == (
+        before[0] + 2, before[1], before[2] + 2)
+    assert out.dtype == torch.bfloat16 and out.shape == (rows, d)
+    assert torch.equal(_bits(out), _bits(again))
+    tol = BF16_ULP * want.float().abs() + 1e-5
+    assert bool(((out.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_cuda_train_file_is_deterministic(cuda_device, tmp_path,
+                                          monkeypatch):
+    """Two Trainer.train_file runs over one generated TSV, with bfloat16
+    embeddings and window plans on the folded group, give the same losses
+    and params bit for bit.  At batch 384 window 0 of d4 holds more than
+    T_IDS ids, so every step's plan says ok=0 and takes K1."""
+    import os
+
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.plan import FeaturePlan
+    from wide_deep_tpu_torch.optim import sparse as tsparse
+    from wide_deep_tpu_torch.optim import tree_items
+    from wide_deep_tpu_torch.testing import (generate_ctr_tsv,
+                                             write_small_conf)
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    conf_dir = write_small_conf(str(tmp_path / "conf"))
+    path = os.path.join(conf_dir, "model.yaml")
+    with open(path) as f:
+        text = f.read().replace("embedding_dtype: float32",
+                                "embedding_dtype: bfloat16")
+    with open(path, "w") as f:
+        f.write(text + "\nwide_fold_max_rows: 20000\n")  # d4 folded
+    monkeypatch.setattr(tsparse, "SPARSE_MIN_ROWS", 1)
+    monkeypatch.setattr(FeaturePlan, "scatter_group", lambda self, g, b: False)
+    monkeypatch.setattr(FeaturePlan, "window_group",
+                        lambda self, g, b: g.folded)
+    batch, steps = 384, 3
+    tsv = str(tmp_path / "train.tsv")
+    generate_ctr_tsv(Config(conf_dir), tsv, batch * steps, seed=0,
+                     hash_spread=None)
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(Config(conf_dir), "wide_deep",
+                          model_dir=str(tmp_path), device="cuda",
+                          overrides=dict(batch_size=batch, pack_budget=3))
+        before = (tsc.window_ok0_launches, tsc.window_launches)
+        trainer.train_file(tsv, max_steps=steps)
+        torch.cuda.synchronize()
+        assert (tsc.window_ok0_launches - before[0],
+                tsc.window_launches - before[1]) == (steps, 0)
+        runs.append(([float(x) for x in trainer.losses],
+                     {p: v.detach().cpu() for p, v in
+                      tree_items(trainer.params)}))
+    (losses_a, params_a), (losses_b, params_b) = runs
+    assert len(losses_a) == steps and losses_a == losses_b
+    assert sorted(params_a) == sorted(params_b)
+    for p, v in params_a.items():
+        w = params_b[p]
+        assert v.dtype == w.dtype and torch.equal(
+            v.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)), p
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["range", "window"])
 def test_cuda_trainer_matches_cpu(cuda_device, tmp_path, monkeypatch, mode):

@@ -169,22 +169,66 @@ def test_plain_window_matches_pallas(kind, n, rows, d, dtype):
         _check_pallas_bf16(jout, ref, abs_sum, None, None)
 
 
-def test_window_plan_ok0_takes_plain_sum():
-    """ok=0 is the plan's own contract: the plain sum in the output dtype,
-    matching the JAX package's fallback branch."""
-    rng = np.random.default_rng(3)
-    n, rows, d = 3000, 30000, 8
+def _ok0_case(d, dtype, seed=3):
+    """A hot_window stream whose window plan overflows (ok=0) -> (plan, g,
+    float64 sum, float64 sum of magnitudes, live ids per row)."""
+    rng = np.random.default_rng(seed)
+    n, rows = 3000, 30000
     ids = _ids("hot_window", n, rows, rng)
     plan = tsc.make_window_plan(ids, rows)
     assert plan["ok"][0] == 0
-    g = rng.normal(size=(n, d)).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dtype)
+    g64 = g.double().numpy()[plan["perm"]]
+    ref = np.zeros((rows, d), np.float64)
+    np.add.at(ref, plan["ids"], g64)
+    abs_sum = np.zeros((rows, d), np.float64)
+    np.add.at(abs_sum, plan["ids"], np.abs(g64))
+    return plan, g, ref, abs_sum, np.bincount(plan["ids"], minlength=rows)
+
+
+@pytest.mark.parametrize("d", [8, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_plan_ok0_takes_plain_sum(d, dtype):
+    """ok=0 is summed by K1's function over the plan's sorted stream (its
+    plain version here): float32 summed, rounded once.  float32: within
+    1e-5 of the JAX package's fallback branch.  bfloat16: within one bf16
+    ulp of the float64 sum (K1's tolerance), and the JAX fallback, which
+    accumulates in bfloat16 and so rounds once per add, within k bf16 ulps
+    of each row's sum of magnitudes, k the row's count of ids."""
+    plan, g, ref, abs_sum, per_row = _ok0_case(d, dtype)
+    rows = ref.shape[0]
     out = tsc.apply_window_plan({k: torch.from_numpy(v)
-                                 for k, v in plan.items()},
-                                torch.from_numpy(g), rows)
+                                 for k, v in plan.items()}, g, rows)
+    assert out.dtype == dtype and out.shape == (rows, d)
     jout = jsc.apply_window_plan({k: jnp.asarray(v) for k, v in plan.items()},
-                                 jnp.asarray(g), rows, interpret=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5,
-                               atol=1e-5)
+                                 _jax_array(g), rows, interpret=True)
+    jout = np.asarray(jout.astype(jnp.float32), np.float64)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.numpy(), jout, rtol=1e-5, atol=1e-5)
+    else:
+        _check_bf16(out.float().numpy(), ref)
+        tol = BF16_ULP * np.maximum(per_row, 1)[:, None] * abs_sum + 1e-5
+        assert np.all(np.abs(jout - ref) <= tol)
+
+
+def test_window_plan_ok0_goes_through_k1(monkeypatch):
+    """The ok=0 branch calls K1's tile-free entry (a float32 sum rounded
+    once), so its bits are K1's plain version's."""
+    plan, g, ref, _, _ = _ok0_case(17, torch.bfloat16)
+    calls = []
+    k1 = tsc.sorted_stream_sum
+
+    def spy_k1(*args):
+        calls.append(args[3:])
+        return k1(*args)
+
+    monkeypatch.setattr(tsc, "sorted_stream_sum", spy_k1)
+    tp = {k: torch.from_numpy(v) for k, v in plan.items()}
+    rows = ref.shape[0]
+    out = tsc.apply_window_plan(tp, g, rows)
+    assert calls == [(rows, torch.bfloat16)]
+    want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
 
 
 def test_compact_sum_matches_pallas():

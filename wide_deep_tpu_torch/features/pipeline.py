@@ -352,7 +352,7 @@ class CsvDataset:
         """Non-empty lines of the files, round-robin sharded by index."""
         idx = 0
         for path in self.files:
-            with open(path, errors="replace") as f:
+            with open(path, encoding="utf-8", errors="replace") as f:
                 for line in f:
                     line = line.rstrip("\n").rstrip("\r")
                     if not line:

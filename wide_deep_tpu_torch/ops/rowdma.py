@@ -16,10 +16,14 @@ leaf by leaf.
 **P2** ``bulk_scatter_rows`` replaces the Pallas probe
 tools/microbench_rowdma_scatter.py::kernel_scatter (one HBM->HBM row DMA
 per uid, ring of 32 semaphores), which measures the other design K3 can
-take: csrc/bulk_row_scatter.cu stages each row through shared memory with
-Hopper's bulk-copy unit (``cp.async.bulk``), one elected thread per block of
-512 uids issuing the copies.  It takes any width whose row is a multiple of
-16 bytes, in float32 or bfloat16.  K3 stays the train step's write-back.
+take: csrc/bulk_row_scatter.cu stages the rows through shared memory with
+Hopper's bulk-copy unit (``cp.async.bulk``).  A warp owns 32 uids, one lane
+per row: one bulk load brings the chunk's live rows (contiguous, since the
+uids are sorted) into the warp's slab on its mbarrier, and after one wait
+every lane stores its own row to the table with a bulk copy of its own.
+It takes any width whose row is a multiple of 16 bytes, up to
+BULK_MAX_ROW_BYTES, in float32 or bfloat16.  K3 stays the train step's
+write-back.
 
 Both share the plain version (masked index assignment, any width and
 dtype).  ``rowdma_launches`` and ``bulk_scatter_launches`` count kernel
@@ -36,8 +40,9 @@ from wide_deep_tpu_torch.ops import cuda_build
 
 FUSED_WIDTH = 128   # float32 columns of a fused sparse-optimizer table
 BULK_ROW_ALIGN = 16         # bytes: the bulk-copy unit's size and address unit
-BULK_MAX_ROW_BYTES = 7168   # 32 ring slots in shared memory
-                            # (csrc/bulk_row_scatter.cu kMaxRowBytes)
+BULK_MAX_ROW_BYTES = 7168   # two rows in a warp's 16 KB slab
+                            # (csrc/bulk_row_scatter.cu kMaxRowBytes, which
+                            # kernel_bulk_max_row_bytes reads)
 
 rowdma_launches = 0
 bulk_scatter_launches = 0
@@ -93,11 +98,18 @@ def rowdma_scatter_rows(table: torch.Tensor, uids: torch.Tensor,
 def _lib_bulk():
     fn = cuda_build.library("bulk_row_scatter").wdt_bulk_row_scatter
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, ctypes.c_int, ctypes.c_int,
-                       p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_bulk_max_row_bytes() -> int:
+    """The widest row csrc/bulk_row_scatter.cu takes (BULK_MAX_ROW_BYTES
+    must agree with it); builds the kernel library."""
+    fn = cuda_build.library("bulk_row_scatter").wdt_bulk_max_row_bytes
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def bulk_scatter_rows(table: torch.Tensor, uids: torch.Tensor,
@@ -107,8 +119,8 @@ def bulk_scatter_rows(table: torch.Tensor, uids: torch.Tensor,
     them -- a negative uid too, which jnp's ``.at[]`` would wrap), in place;
     returns ``table``.  Both float32 or both bfloat16, contiguous, on one
     device, with D x element size a multiple of 16 bytes.  CUDA tensors
-    launch csrc/bulk_row_scatter.cu on the current stream, one block per
-    512 uids."""
+    launch csrc/bulk_row_scatter.cu on the current stream: a warp per 32
+    uids, one bulk load of their rows, a bulk store per row."""
     global bulk_scatter_launches
     dev = table.device
     if (table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16)

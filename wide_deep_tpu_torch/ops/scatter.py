@@ -24,9 +24,10 @@ float32 zeros, then one cast).  A wrapper takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  Each
 launch adds one to the module's counter (``range_launches``,
 ``window_launches``; K1 also to ``range_launches_by_width``, keyed by the
-gradient's width D, which tells its call sites apart);
-``window_plain_launches`` counts the plan's own ok=0 branch of
-``apply_window_plan`` apart.
+gradient's width D, which tells its call sites apart).  A window plan whose
+ok flag is 0 (a window over its cap) is summed by K1 over the plan's sorted
+stream: ``window_ok0_launches`` counts those launches apart, and they count
+as K1's too.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ WINDOW_MIN_SUB_ROWS = 16           # K2's narrowest sub-window
 range_launches = 0         # K1 kernel launches
 range_launches_by_width: Dict[int, int] = {}   # the same, by D
 window_launches = 0        # K2 kernel launches
-window_plain_launches = 0  # apply_window_plan's ok=0 branch (plain sum)
+window_ok0_launches = 0    # K1 launches of apply_window_plan's ok=0 branch
 
 
 # ---------------------------------------------------------------- host plans
@@ -243,11 +244,9 @@ def make_compact_plan(ids_flat: np.ndarray, rows: int):
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def _check_stream(ids_sorted, perm, g_flat, tiles, n_tile_rows, rows,
-                  out_dtype):
+def _check_stream(ids_sorted, perm, g_flat, rows, out_dtype):
     dev = g_flat.device
-    for name, t in (("ids_sorted", ids_sorted), ("perm", perm),
-                    ("tiles", tiles)):
+    for name, t in (("ids_sorted", ids_sorted), ("perm", perm)):
         if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 on {dev}")
     if (g_flat.dim() != 2 or g_flat.dtype not in _FLOATS
@@ -257,29 +256,30 @@ def _check_stream(ids_sorted, perm, g_flat, tiles, n_tile_rows, rows,
     n = g_flat.shape[0]
     if ids_sorted.shape != (n,) or perm.shape != (n,):
         raise ValueError(f"ids_sorted and perm must be [{n}]")
-    if tiles.dim() != 2 or tiles.shape[0] != n_tile_rows:
-        raise ValueError(f"tiles must be [{n_tile_rows}, n_tiles]")
     if out_dtype not in _FLOATS:
         raise ValueError("out_dtype must be float32 or bfloat16")
     if rows < 0:
         raise ValueError("rows must be >= 0")
 
 
-def _plain_scatter_add(ids_sorted, perm, g_flat, rows, acc_dtype, out_dtype):
-    """zeros[rows, D].at[ids_sorted].add(g_flat[perm]) summed in
-    ``acc_dtype``; ids outside [0, rows) (plan sentinels) drop."""
-    keep = (ids_sorted >= 0) & (ids_sorted < rows)
-    out = torch.zeros((rows, g_flat.shape[1]), dtype=acc_dtype,
-                      device=g_flat.device)
-    out.index_add_(0, ids_sorted[keep].long(),
-                   g_flat[perm[keep].long()].to(acc_dtype))
-    return out.to(out_dtype)
+def _check_tiles(tiles, n_tile_rows, dev):
+    if (tiles.dtype != torch.int32 or tiles.device != dev
+            or not tiles.is_contiguous()):
+        raise ValueError(f"tiles must be contiguous int32 on {dev}")
+    if tiles.dim() != 2 or tiles.shape[0] != n_tile_rows:
+        raise ValueError(f"tiles must be [{n_tile_rows}, n_tiles]")
 
 
 def range_scatter_add_plain(ids_sorted, perm, g_flat, rows, out_dtype=None):
-    """K1's plain version: ``index_add_`` into float32 zeros, one cast."""
-    return _plain_scatter_add(ids_sorted, perm, g_flat, rows, torch.float32,
-                              out_dtype or g_flat.dtype)
+    """K1's plain version: ``zeros[rows, D].at[ids_sorted].add(g_flat[perm])``
+    by ``index_add_`` into float32 zeros, one cast to ``out_dtype``
+    (default: g's dtype); ids outside [0, rows) (plan sentinels) drop."""
+    keep = (ids_sorted >= 0) & (ids_sorted < rows)
+    out = torch.zeros((rows, g_flat.shape[1]), dtype=torch.float32,
+                      device=g_flat.device)
+    out.index_add_(0, ids_sorted[keep].long(),
+                   g_flat[perm[keep].long()].float())
+    return out.to(out_dtype or g_flat.dtype)
 
 
 window_scatter_add_plain = range_scatter_add_plain  # K2: the same function
@@ -348,9 +348,20 @@ def range_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
     CUDA tensors launch csrc/range_scatter.cu on the current stream, which
     needs only the sorted stream (the tiles are checked, not read) and
     gives the same bits on every call."""
+    _check_tiles(tiles, 4, g_flat.device)
+    return sorted_stream_sum(ids_sorted, perm, g_flat, rows,
+                             out_dtype or g_flat.dtype)
+
+
+def sorted_stream_sum(ids_sorted: torch.Tensor, perm: torch.Tensor,
+                      g_flat: torch.Tensor, rows: int,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 without a plan's tiles: the same sum over any sorted stream whose
+    ids outside [0, rows) drop (a range plan's or a window plan's
+    sentinels).  CPU tensors take the plain version; CUDA tensors launch
+    csrc/range_scatter.cu, counted in ``range_launches`` and by width."""
     global range_launches
-    out_dtype = out_dtype or g_flat.dtype
-    _check_stream(ids_sorted, perm, g_flat, tiles, 4, rows, out_dtype)
+    _check_stream(ids_sorted, perm, g_flat, rows, out_dtype)
     if g_flat.device.type == "cpu":
         return range_scatter_add_plain(ids_sorted, perm, g_flat, rows,
                                        out_dtype)
@@ -401,7 +412,8 @@ def window_scatter_add(ids_sorted: torch.Tensor, perm: torch.Tensor,
     than the kernel takes (``window_sub_rows``)."""
     global window_launches
     out_dtype = out_dtype or g_flat.dtype
-    _check_stream(ids_sorted, perm, g_flat, tiles, 3, rows, out_dtype)
+    _check_stream(ids_sorted, perm, g_flat, rows, out_dtype)
+    _check_tiles(tiles, 3, g_flat.device)
     if tiles.shape[1] * MAXR < rows:
         raise ValueError(f"{tiles.shape[1]} windows cannot cover {rows} rows")
     if not 0 < wcap <= T_IDS:
@@ -436,18 +448,21 @@ def apply_scatter_plan(plan: Dict[str, torch.Tensor], g_flat: torch.Tensor,
 def apply_window_plan(plan: Dict[str, torch.Tensor], g_flat: torch.Tensor,
                       rows: int, out_dtype=None) -> torch.Tensor:
     """Scatter-add by a window plan.  ok=1 runs K2; ok=0 (a window over its
-    static cap) is the plan's own contract for the plain sum, accumulated in
-    ``out_dtype`` like the JAX package's fallback branch and counted in
-    ``window_plain_launches``.  ``ok`` is read on the host: the port's
-    batches keep it on the CPU."""
-    global window_plain_launches
+    static cap) runs K1 over the plan's sorted stream (``sorted_stream_sum``,
+    counted in ``window_ok0_launches`` too): a float32 sum rounded once, the
+    same bits on every call.  The JAX package's ok=0 branch accumulates in
+    ``out_dtype`` instead, so in bfloat16 the two differ by its roundings
+    (a difference on purpose, ROADMAP.md Queue 3).  ``ok`` is read on the
+    host: the port's batches keep it on the CPU."""
+    global window_ok0_launches
     out_dtype = out_dtype or g_flat.dtype
     n = g_flat.shape[0]
     if int(plan["ok"][0]) > 0:
         return window_scatter_add(plan["ids"], plan["perm"], g_flat,
                                   plan["tiles"], rows, window_cap(n, rows),
                                   out_dtype)
+    out = sorted_stream_sum(plan["ids"], plan["perm"], g_flat, rows,
+                            out_dtype)
     if g_flat.device.type == "cuda":
-        window_plain_launches += 1
-    return _plain_scatter_add(plan["ids"], plan["perm"], g_flat, rows,
-                              out_dtype, out_dtype)
+        window_ok0_launches += 1
+    return out

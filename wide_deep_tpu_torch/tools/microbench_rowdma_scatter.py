@@ -11,8 +11,9 @@ one asynchronous HBM->HBM row DMA per uid with a ring of DMA semaphores.
 Hopper's counterpart of that row DMA is its bulk-copy unit
 (``cp.async.bulk``, the one-dimensional form of TMA), which copies between
 global and shared memory: the kernel (ops/rowdma.py ``bulk_scatter_rows``,
-csrc/bulk_row_scatter.cu) stages each row through a ring of shared-memory
-slots, one elected thread per block of 512 uids issuing both copies.
+csrc/bulk_row_scatter.cu) gives each warp 32 uids, brings their rows into
+the warp's shared-memory slab with one bulk load, and stores each row to
+the table with a bulk copy of its own, one lane per row.
 
 Prints the devices and the dtype; a check of the kernel against the plain
 version over the whole table (exact; a mismatch exits non-zero); then the
