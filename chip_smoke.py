@@ -4,11 +4,13 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and ``nvcc``; builds the kernels from
-``wide_deep_tpu_torch/csrc`` itself (into ``build/kernels``).  Phases, one
-line each on stdout:
+Needs one CUDA card, ``nvcc`` and a C++ compiler; builds the kernels from
+``wide_deep_tpu_torch/csrc`` itself (into ``build/kernels``) and the C++
+loader from ``cpp/fastdata.cc`` (into ``build/native``).  Phases, one line
+each on stdout:
 
-0. the card's name and power limit (nvidia-smi), the kernels' build time;
+0. the card's name and power limit (nvidia-smi), the kernels' and the
+   loader's build times;
 1. K1 (range scatter-add) at the production d8, d4 and d32-compact shapes,
    K2 (window scatter-add) at the d16 shape, K1 again on that d16 stream as
    the window plan's ok=0 branch runs it, K3 (row write-back) and P2 (bulk
@@ -18,30 +20,41 @@ line each on stdout:
    version on the same inputs, with its time from CUDA events beside the
    plain version's, one PyTorch library call's and the bound, and the
    device time of the kernel and of the library call from a torch.profiler
-   window of 10 more calls each (the event time less the device time is the
+   window of 10 more calls each, after a warm-up call (the event time less the device time is the
    wrapper's host time); K1 and K2 are each called twice and must give the
    same bits (K2's line gives the sub-window the kernel launches with, which
    must be the one its wrapper assumes);
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
-   pack_budget 3): 2 steps through ``train_file`` on a generated TSV, then
-   5 steps on seeded synthetic batches; every step, each read on its own,
+   pack_budget 3): 2 steps through ``train_file`` on a generated TSV (the
+   native loader's fast path, then one host-to-device copy a batch, both in
+   prefetch threads), then 5 steps on seeded synthetic batches; every step,
+   each read on its own,
    must launch K1 once at each of its three sites (d8, d4, d32 compact) and
    K2 and K3 once each, except that a file batch whose d16 plan says ok=0
    launches K1 on the d16 stream in K2's place (its line says so); losses
    and params must stay finite, touched d32 rows must change and an
    untouched one not;
    then (2c, after the launch counts are read) torch.profiler over 3 more
-   steps: wall time, the device's busy share, the top kernels by device
-   time, and the device time of the port's own kernels in the step, with
-   the device's memsets (K1 clears its output with one; the Chrome trace
-   goes to build/step_trace.json);
+   steps after a warm-up step: wall time, the device's busy share, the top kernels by device
+   time, the device time of the port's own kernels in the step, with the
+   device's memsets (K1 clears its output with one; the Chrome trace goes
+   to build/step_trace.json), and the host-to-device copies a step makes,
+   which must be one, with their device time and the host time of
+   ``Trainer._to_device``;
 3. the probes' path: ``main`` of the port's two microbenchmark tools,
    in-process on the card as a user runs them (P1's; P2's in float32 and
    with ``bf16``), each of which checks its kernel against the plain
    version and prints both times; the counts are set to 0 before the
    phase and read around each tool, which must launch its kernel and no
    other;
-4. one JSON line describing the kernels, then the device line.
+4. ``Trainer.evaluate`` and ``Trainer.predict`` over phase 2's TSV with
+   phase 2's Trainer: finite metrics, an AUC in [0, 1], one prediction a
+   line, and no kernel launch;
+5. the bench tool's ``main`` (``wide_deep_tpu_torch.tools.bench``) in-process
+   at batch 25600 with 6 end-to-end batches, once phase 2's Trainer is
+   freed: its JSON line must hold every key, and each of its train steps
+   must launch the kernels as phase 2's do;
+then one JSON line describing the kernels, and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -49,7 +62,6 @@ Exits non-zero on any failure, and at once when there is no CUDA device.
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -81,23 +93,35 @@ def dev_us(e):
                    getattr(e, "self_cuda_time_total", 0))
 
 
+def on_device(e):
+    """Whether a profiler entry is work on the card (a kernel, memset or
+    copy): the schedule's ``ProfilerStep*`` spans also carry a device-side
+    entry, which covers the step's kernels and would count them twice."""
+    return (str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("ProfilerStep"))
+
+
 def device_ms(fn, calls=10):
     """Device time of one ``fn()`` by what ran: every kernel, memset and
-    copy on the card in a torch.profiler window around ``calls`` calls ->
-    {short name: ms per call}."""
+    copy on the card in a torch.profiler window around ``calls`` calls,
+    after one warm-up call inside the profiler (the tracer can miss the
+    first operations after it starts) -> {short name: ms per call}."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for i in range(calls + 1):
             fn()
-        torch.cuda.synchronize()
+            if i == calls:
+                torch.cuda.synchronize()
+            prof.step()
     parts = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and dev_us(e) > 0:
+        if on_device(e) and dev_us(e) > 0:
             m = re.search(r"(\w+)[<(]", e.key)
             name = m.group(1) if m else e.key.split(" (")[0]
             parts[name] = parts.get(name, 0.0) + dev_us(e) / 1e3 / calls
@@ -412,6 +436,7 @@ def phase_trainer(card, tmp):
 
     from wide_deep_tpu_torch import testing
     from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.native import NativeTransformer
     from wide_deep_tpu_torch.optim import tree_items
     from wide_deep_tpu_torch.training.loop import Trainer
 
@@ -422,6 +447,10 @@ def phase_trainer(card, tmp):
     trainer = Trainer(config, "wide_deep", model_dir=tmp,
                       overrides={"batch_size": BATCH, "pack_budget": 3},
                       device="cuda")
+    if not isinstance(trainer.transformer, NativeTransformer):
+        raise SystemExit(f"the Trainer loads with "
+                         f"{type(trainer.transformer).__name__}, not the "
+                         f"native loader")
     t0 = time.time()
     trainer.ensure_initialized()
     torch.cuda.synchronize()
@@ -451,7 +480,9 @@ def phase_trainer(card, tmp):
         check_step(f"file step {i}", d)
     file_counts = counts()
     file_losses = [float(x) for x in trainer.losses]
-    log(f"phase 2a: train_file 2 steps in {time.time() - t0:.1f} s, losses "
+    log(f"phase 2a: train_file 2 steps in {time.time() - t0:.1f} s through "
+        f"the native loader ({trainer.transformer.n_threads} threads, fast "
+        f"path) and one prefetched copy a batch; file-step losses "
         f"{file_losses}, launches per step {file_steps}"
         + (f" (d16 ok=0 on {file_counts['d16 ok=0']} batch(es): K1 in "
            f"K2's place)" if file_counts["d16 ok=0"] else ""))
@@ -501,33 +532,43 @@ def phase_trainer(card, tmp):
         f"launches per step K1 3 (d8, d4, d32 compact 1 each), K2 1, K3 1; "
         f"peak memory {peak:.2f} GB")
     profile_steps(trainer, rng)
-    return main_counts, float(np.median(step_ms))
+    return trainer, tsv, main_counts
 
 
 def profile_steps(trainer, rng, n_steps=3):
     """Where a step's time goes: torch.profiler over ``n_steps`` synthetic
-    steps (batches built before the window) -> one line with the wall time
-    per step, the device's busy share and the top operators by device
-    time.  Runs after the main path's launch counts were read."""
+    steps after one warm-up step inside the profiler (the tracer can miss
+    the first operations after it starts; batches built before the window)
+    -> one line with the wall time per step, the device's busy share and
+    the top operators by device time.  Runs after the main path's launch
+    counts were read."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from wide_deep_tpu_torch import testing
     batches = [testing.synthetic_batch(trainer.plan, BATCH, rng)
-               for _ in range(n_steps)]
+               for _ in range(n_steps + 1)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches:
-            trainer.train_batch(b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    to_device_ms = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_steps,
+                                   repeat=1)) as prof:
+        for i, b in enumerate(batches):
+            if i == 1:                  # the recorded steps start here
+                t0 = time.perf_counter()
+            th = time.perf_counter()
+            db = trainer._to_device(b)
+            if i:
+                to_device_ms.append((time.perf_counter() - th) * 1e3)
+            trainer.train_batch(db)
+            if i == n_steps:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            prof.step()
 
     # the kernels' own entries (device type CUDA), so no time counts twice
-    kernels = sorted((e for e in prof.key_averages()
-                      if str(e.device_type).endswith("CUDA")),
+    kernels = sorted(filter(on_device, prof.key_averages()),
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
     top = [f"{e.key[:60]} {dev_us(e) / 1e3 / n_steps:.3f} ms x"
@@ -542,8 +583,18 @@ def profile_steps(trainer, rng, n_steps=3):
               for hits in [[e for e in kernels if name in e.key]]]
     log("phase 2c: the port's kernels, device time per step: "
         + "; ".join(ported))
+    h2d = [e for e in kernels if "HtoD" in e.key]
+    n_h2d = sum(e.count for e in h2d) / n_steps
+    mb = sum(v.nbytes for v in batches[0].values()) / 1e6
+    log(f"phase 2c: host-to-device copies per step: {n_h2d:g} ("
+        + ", ".join(f"{e.key} x{e.count}" for e in h2d)
+        + f"), {sum(dev_us(e) for e in h2d) / 1e3 / n_steps:.4f} ms/step on "
+        f"the device for a {mb:.1f} MB batch; Trainer._to_device host time "
+        f"{', '.join(f'{x:.2f}' for x in to_device_ms)} ms")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     prof.export_chrome_trace(os.path.join(ROOT, "build", "step_trace.json"))
+    if n_h2d != 1:
+        raise SystemExit(f"{n_h2d:g} host-to-device copies a step, not 1")
 
 
 def phase_tools():
@@ -582,6 +633,90 @@ def phase_tools():
     return out
 
 
+def phase_eval(trainer, tsv):
+    """Phase 4: evaluate and predict over the TSV on the card: finite
+    metrics, an AUC in [0, 1], one prediction a line, no kernel launch."""
+    import math
+
+    import numpy as np
+    import torch
+    with open(tsv) as f:
+        n_rows = sum(1 for line in f if line.strip())
+    n_batches = -(-n_rows // BATCH)
+    c0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(tsv)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preds = list(trainer.predict(tsv))
+    pred_s = time.perf_counter() - t0
+    d = {k: v for k, v in delta(c0, counts()).items() if v}
+    if d:
+        raise SystemExit(f"phase 4: evaluate/predict launched {d}")
+    bad = [k for k, v in res.items() if not math.isfinite(v)]
+    if bad or not 0.0 <= res["auc"] <= 1.0:
+        raise SystemExit(f"phase 4: metrics {res}")
+    if len(preds) != n_rows:
+        raise SystemExit(f"phase 4: {len(preds)} predictions for {n_rows} "
+                         f"lines")
+    probs = np.array([p["logistic"] for p in preds])
+    if not (np.isfinite(probs).all() and (probs >= 0).all()
+            and (probs <= 1).all()):
+        raise SystemExit("phase 4: a prediction is not a probability")
+    log(f"phase 4: evaluate over {n_rows} rows ({n_batches} batches) in "
+        f"{eval_s:.2f} s ({eval_s / n_batches * 1e3:.1f} ms per batch, "
+        f"loader included): {res}; predict gave {len(preds)} rows in "
+        f"{pred_s:.2f} s ({pred_s / n_batches * 1e3:.1f} ms per batch); no "
+        f"kernel launched")
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms",
+              "warmup_s", "device", "loader_rows_per_sec_by_threads",
+              "loader_examples_per_sec", "transfer_first_ms",
+              "transfer_steady_ms_per_batch", "batch_mbytes",
+              "e2e_wait_ms_per_step", "e2e_dispatch_ms_per_step",
+              "end_to_end_examples_per_sec", "end_to_end_step_ms")
+
+
+def phase_bench(card):
+    """Phase 5: the bench tool's ``main`` as a user runs it (batch 25600,
+    6 end-to-end batches); its JSON line must hold every key, and each of
+    its train steps must launch K1 at its three sites, K3, and K2 or (d16
+    ok=0) K1 once more, as phase 2's steps do."""
+    from wide_deep_tpu_torch.tools import bench
+    env = {"BENCH_E2E_BATCHES": "6"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    c0 = counts()
+    t0 = time.time()
+    try:
+        out = bench.main([])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    d = delta(c0, counts())
+    missing = [k for k in BENCH_KEYS if k not in out]
+    if missing:
+        raise SystemExit(f"phase 5: the bench line lacks {missing}")
+    if out["device"] != card:
+        raise SystemExit(f"phase 5: the bench names {out['device']!r}")
+    n = out["train_steps"]
+    ok0 = d["d16 ok=0"]
+    want = {"K1 d8": n, "K1 d4": n, "K1 d32 compact": n, "K3": n}
+    if ({k: d.get(k, 0) for k in want} != want or d["K2"] + ok0 != n
+            or d["K1"] != 3 * n + ok0 or d["P1"] or d["P2"]):
+        raise SystemExit(f"phase 5: {n} steps launched {d}")
+    log(f"phase 5: bench in {time.time() - t0:.1f} s: step "
+        f"{out['step_ms']:.2f} ms, end to end "
+        f"{out['end_to_end_step_ms']:.2f} ms/step; {n} train steps launched "
+        f"K1 {d['K1']} ({ok0} on d16 ok=0), K2 {d['K2']}, K3 {d['K3']}")
+    return d
+
+
 def count_key(name):
     """A kernels-line row's counter: "K1 range_scatter_add d8" -> "K1 d8",
     "K3 rowdma_scatter_rows d32" -> "K3", "P2 bulk_scatter_rows f32" ->
@@ -600,20 +735,27 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from wide_deep_tpu_torch import testing
     from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features import native
     from wide_deep_tpu_torch.ops import cuda_build
+    from wide_deep_tpu_torch.tools.bench import device_name
     from wide_deep_tpu_torch.training.loop import build_training_plan
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = device_name(torch.device("cuda"))    # nvidia-smi's line
     log(card)
     t0 = time.time()
-    built = cuda_build.build()
+    with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
+        loader = pool.submit(native.build)
+        built = cuda_build.build()
+        kernels_s = time.time() - t0
+        loader = loader.result()
     log(f"phase 0: built {sorted(built) or 'nothing (cached)'} in "
-        f"{time.time() - t0:.1f} s")
+        f"{kernels_s:.1f} s; the C++ loader "
+        f"{'built' if loader['built'] else 'found'} in "
+        f"{loader['seconds']:.1f} s: {os.path.relpath(loader['path'], ROOT)}")
 
     device = torch.device("cuda")
     config = Config(os.path.join(ROOT, "conf"))
@@ -625,12 +767,17 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        main_counts, _ = phase_trainer(card, tmp)
+        trainer, tsv, main_counts = phase_trainer(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tool_counts = phase_tools()
+        phase_eval(trainer, tsv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    tool_counts = phase_tools()
+    phase_bench(card)
 
     # K1 (the d16 ok=0 site on file steps), K2 and K3 launch on the train
     # path, P1 and P2 on the tools' path

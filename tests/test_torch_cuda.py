@@ -498,6 +498,87 @@ def test_cuda_trainer_matches_cpu(cuda_device, tmp_path, monkeypatch, mode):
                                    rtol=1e-3, atol=1e-4, err_msg=str(path))
 
 
+@pytest.mark.cuda
+def test_cuda_evaluate_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """Trainer.evaluate and predict on the card against the CPU from the
+    same params, over the sample file at the small config: every metric
+    within rtol 1e-4 (auc and auc_precision_recall within 1e-4 absolute),
+    predictions within rtol 1e-4 / atol 1e-5; no kernel launches."""
+    import os
+
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.optim import sparse as tsparse
+    from wide_deep_tpu_torch.testing import write_small_conf
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    conf_dir = write_small_conf(str(tmp_path / "conf"))
+    with open(os.path.join(conf_dir, "model.yaml"), "a") as f:
+        f.write("\nwide_fold_max_rows: 20000\n")   # d4 folded, d8 sparse
+    monkeypatch.setattr(tsparse, "SPARSE_MIN_ROWS", 1)
+    over = dict(batch_size=64, pack_budget=3, train_data=TRAIN1)
+    cpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
+                  device="cpu", dtype=torch.float32)
+    gpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
+                  device="cuda", dtype=torch.float32)
+    cpu.ensure_initialized()
+    gpu.params = {k: _to(v, cuda_device) for k, v in cpu.params.items()}
+    gpu.mstate = {k: _to(v, cuda_device) for k, v in cpu.mstate.items()}
+    before = (tsc.range_launches, tsc.window_launches,
+              trowdma.rowdma_launches)
+    got, want = gpu.evaluate(TRAIN1), cpu.evaluate(TRAIN1)
+    preds = list(gpu.predict(TRAIN1))
+    torch.cuda.synchronize()
+    assert (tsc.range_launches, tsc.window_launches,
+            trowdma.rowdma_launches) == before
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if k in ("auc", "auc_precision_recall"):
+            assert abs(got[k] - v) <= 1e-4, (k, got[k], v)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, err_msg=k)
+    cpu_preds = list(cpu.predict(TRAIN1))
+    assert len(preds) == len(cpu_preds) == sum(1 for _ in open(TRAIN1))
+    for i in range(0, len(preds), 97):
+        for k, v in cpu_preds[i].items():
+            np.testing.assert_allclose(preds[i][k], v, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"row {i} {k}")
+
+
+@pytest.mark.cuda
+def test_cuda_to_device_one_copy_bit_for_bit(cuda_device, tmp_path):
+    """_to_device on the card: every key lands bit for bit in its 256-byte
+    aligned slice of one device buffer, the ok flags stay on the host, and
+    the consumer's stream sees the copy after claim()."""
+    import os
+
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.testing import synthetic_batch, write_small_conf
+    from wide_deep_tpu_torch.training.loop import DeviceBatch, Trainer
+
+    conf_dir = write_small_conf(str(tmp_path / "conf"))
+    with open(os.path.join(conf_dir, "model.yaml"), "a") as f:
+        f.write("\nwide_fold_max_rows: 20000\n")
+    tr = Trainer(Config(conf_dir), "wide_deep", device="cuda",
+                 overrides=dict(batch_size=512, pack_budget=3))
+    batch = synthetic_batch(tr.plan, 512, np.random.default_rng(0))
+    batch["wscat_ok_d4"] = np.ones(1, np.int32)
+    out = tr._to_device(batch).claim()
+    assert isinstance(out, DeviceBatch) and sorted(out) == sorted(batch)
+    base = out.buffer.data_ptr()
+    for k, v in batch.items():
+        t = out[k]
+        if "_ok_" in k:
+            assert t.device.type == "cpu"
+        else:
+            assert t.device.type == "cuda"
+            assert (t.data_ptr() - base) % 256 == 0 and t.data_ptr() % 256 == 0
+            assert t.untyped_storage().data_ptr() == \
+                out.buffer.untyped_storage().data_ptr()
+        np.testing.assert_array_equal(t.cpu().numpy().view(np.uint8),
+                                      v.view(np.uint8), err_msg=k)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -202,14 +202,17 @@ def test_pack_budget_auto_parity(conf_dir):
 
 
 def test_csv_dataset_parity(conf_dir):
-    """Same file, seed and shuffle buffer: identical batch stream."""
+    """Same file, seed and shuffle buffer: identical batch stream from the
+    Python loaders (tests/test_torch_native.py holds the native paths)."""
     from wide_deep_tpu.features.pipeline import CsvDataset as JD
     from wide_deep_tpu.features.pipeline import FeatureTransformer as JT
     from wide_deep_tpu_torch.features.pipeline import CsvDataset as TD
+    from wide_deep_tpu_torch.features.pipeline import FeatureTransformer as TT
     jp, tp = plan_pair(conf_dir)
     jds = JD(jp, TRAIN1, "train", 64, shuffle_buffer=100, seed=5,
              transformer=JT(jp))
-    tds = TD(tp, TRAIN1, "train", 64, shuffle_buffer=100, seed=5)
+    tds = TD(tp, TRAIN1, "train", 64, shuffle_buffer=100, seed=5,
+             transformer=TT(tp))
     for i, (jb, tb) in enumerate(zip(jds, tds)):
         for k in jb:
             np.testing.assert_array_equal(jb[k], tb[k], err_msg=k)

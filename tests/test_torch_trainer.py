@@ -3,10 +3,13 @@ truncated training file, both on one device, with kernel plans forced in
 (a range plan for the folded group, the fused sparse optimizer for the
 unfolded one).  The port starts from the JAX Trainer's initial params.
 
-First the two loaders must yield identical batches, then the per-step
-losses must agree (float32 model: rtol 2e-5, float32 round-off of sums
-taken in another order) and so must the params after the last step
-(rtol 1e-4 / atol 1e-5, that round-off through the optimizers).
+Both Trainers read the file through their Python loaders (the streaming
+path), or both through their native C++ loaders (the fast path, whose
+shuffle order is another).  First the two loaders must yield identical
+batches in the same order, then the per-step losses must agree (float32
+model: rtol 2e-5, float32 round-off of sums taken in another order) and so
+must the params after the last step (rtol 1e-4 / atol 1e-5, that round-off
+through the optimizers).
 """
 
 import numpy as np
@@ -25,11 +28,22 @@ N_ROWS = 3 * B
 
 
 def test_trainer_matches_jax(tmp_path, monkeypatch):
+    _check_trainers(tmp_path, monkeypatch, native=False)
+
+
+def test_trainer_matches_jax_native_loaders(tmp_path, monkeypatch):
+    _check_trainers(tmp_path, monkeypatch, native=True)
+
+
+def _check_trainers(tmp_path, monkeypatch, native):
     from wide_deep_tpu.config import Config as JConfig
+    from wide_deep_tpu.features.native import NativeTransformer as JNT
     from wide_deep_tpu.features.pipeline import FeatureTransformer as JT
     from wide_deep_tpu.parallel import mesh as mesh_lib
     from wide_deep_tpu.training.loop import Trainer as JTrainer
     from wide_deep_tpu_torch.config import Config as TConfig
+    from wide_deep_tpu_torch.features.native import NativeTransformer as TNT
+    from wide_deep_tpu_torch.features.pipeline import FeatureTransformer as TT
     from wide_deep_tpu_torch.interop import from_jax, to_numpy
     from wide_deep_tpu_torch.training.loop import Trainer as TTrainer
 
@@ -47,14 +61,20 @@ def test_trainer_matches_jax(tmp_path, monkeypatch):
                    model_dir=str(tmp_path / "jax"),
                    mesh=mesh_lib.make_mesh(1, 1, jax.devices()[:1]),
                    overrides=overrides)
-    # the Python loader on both sides (the JAX package's native loader
-    # shuffles in another order)
-    jtr.transformer = JT(jtr.plan, jtr.n_classes, jtr.pos_weight,
-                         jtr.neg_weight)
-    jtr.ensure_initialized(restore=False)
     ttr = TTrainer(TConfig(conf_dir), model_type="wide_deep",
                    model_dir=str(tmp_path / "torch"), overrides=overrides,
                    device="cpu")
+    if native:
+        assert isinstance(jtr.transformer, JNT)
+        assert isinstance(ttr.transformer, TNT)
+    else:
+        # the Python loader on both sides (the native loaders' fast path
+        # shuffles in another order)
+        jtr.transformer = JT(jtr.plan, jtr.n_classes, jtr.pos_weight,
+                             jtr.neg_weight)
+        ttr.transformer = TT(ttr.plan, ttr.n_classes, ttr.pos_weight,
+                             ttr.neg_weight)
+    jtr.ensure_initialized(restore=False)
     assert sorted(ttr.sparse_tables) == sorted(jtr.sparse_tables) != []
     assert ttr.plan.to_dict() == jtr.plan.to_dict()
     ttr.params, ttr.mstate = from_jax(jax.device_get(jtr.params),

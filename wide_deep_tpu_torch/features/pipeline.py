@@ -1,7 +1,8 @@
 """Host-side data pipeline: TSV CTR logs -> packed fixed-shape numpy batches.
 
-The port's own copy of the JAX package's ``features/pipeline.py`` on its
-Python path (the native C++ loader binding is not ported yet).  All parsing,
+The port's own copy of the JAX package's ``features/pipeline.py``: the
+Python transformer, the native C++ loader's paths through ``CsvDataset``
+(features/native.py) and the prefetch iterators.  All parsing,
 hashing, vocab lookup, bucketization, crossing and combiner weights happen on
 the host, so the device sees only dense, statically shaped int32/float32
 arrays, plus the per-batch kernel plans (ops/scatter.py) of the big
@@ -17,9 +18,10 @@ Every batch is padded to ``batch_size`` rows; ``mask`` marks real rows.
 
 from __future__ import annotations
 
+import logging
 import math
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +29,8 @@ from wide_deep_tpu_torch.features import hashing
 from wide_deep_tpu_torch.features.plan import FeaturePlan
 
 Batch = Dict[str, np.ndarray]
+
+log = logging.getLogger("wide_deep_tpu_torch")
 
 
 def list_files(path: str) -> List[str]:
@@ -71,7 +75,7 @@ class FeatureTransformer:
     """Compiles rows of raw TSV strings into a packed Batch.
 
     Pure-numpy/Python implementation, the port's copy of the JAX package's
-    FeatureTransformer (its native C++ fast path is not ported yet).
+    FeatureTransformer (features/native.py is its C++ counterpart).
     """
 
     def __init__(self, plan: FeaturePlan, n_classes: int = 2,
@@ -320,7 +324,12 @@ class FeatureTransformer:
 
 class CsvDataset:
     """Schema-ordered TSV dataset with shuffle/shard/batch (reference
-    dataset.py analog): the JAX package's CsvDataset on its Python path."""
+    dataset.py analog): the JAX package's CsvDataset on local files.
+
+    With the native transformer (``transform_text``) the C++ loader parses
+    raw lines: files that fit ``FAST_SLURP_MAX_BYTES`` together take the
+    vectorized fast path (``_iter_native_fast``), larger inputs stream line
+    by line.  The Python transformer takes pre-split cells."""
 
     def __init__(self, plan: FeaturePlan, data_path: str, mode: str,
                  batch_size: int, n_classes: int = 2,
@@ -328,8 +337,7 @@ class CsvDataset:
                  neg_weight: Optional[float] = None,
                  shuffle_buffer: int = 10000, seed: int = 123,
                  num_shards: int = 1, shard_index: int = 0,
-                 transformer: Optional[FeatureTransformer] = None,
-                 drop_remainder: bool = False):
+                 transformer=None, drop_remainder: bool = False):
         if mode not in ("train", "eval", "pred"):
             raise ValueError(f"bad mode {mode}")
         self.plan = plan
@@ -345,11 +353,14 @@ class CsvDataset:
             transformer = default_transformer(plan, n_classes, pos_weight,
                                               neg_weight)
         self.transformer = transformer
+        self._native = hasattr(transformer, "transform_text")
         self._n_cols = len(plan.columns)
         self._epoch = 0
 
-    def _lines(self) -> Iterator[str]:
-        """Non-empty lines of the files, round-robin sharded by index."""
+    def _raw_lines_indexed(self) -> Iterator[Tuple[int, str]]:
+        """(row index, line) of the files' non-empty lines, round-robin
+        sharded; the index counts lines across the file list before
+        sharding.  Files decode as UTF-8 whatever the locale."""
         idx = 0
         for path in self.files:
             with open(path, encoding="utf-8", errors="replace") as f:
@@ -358,13 +369,13 @@ class CsvDataset:
                     if not line:
                         continue
                     if idx % self.num_shards == self.shard_index:
-                        yield line
+                        yield idx, line
                     idx += 1
 
-    def _rows(self) -> Iterator[List[str]]:
+    def _rows_indexed(self) -> Iterator[Tuple[int, List[str]]]:
         expect = self._n_cols
         has_label = self.mode != "pred"
-        for line in self._lines():
+        for idx, line in self._raw_lines_indexed():
             cells = line.split("\t")
             if has_label:
                 if len(cells) != expect:
@@ -375,17 +386,119 @@ class CsvDataset:
                     cells = [""] + cells
                 elif len(cells) != expect:
                     continue
-            yield cells
+            yield idx, cells
+
+    # files whose total size fits this are read whole for the vectorized
+    # fast path; larger inputs stream line by line
+    FAST_SLURP_MAX_BYTES = 2 << 30
+
+    def _fast_path_ok(self) -> bool:
+        if not self._native:
+            return False
+        return sum(os.path.getsize(p) for p in self.files) \
+            <= self.FAST_SLURP_MAX_BYTES
+
+    def _iter_native_fast(self) -> Iterator[Tuple[Batch, np.ndarray]]:
+        """Vectorized batch emission for the native parser: the files are
+        read as bytes, line boundaries found in one scan (three int arrays,
+        no per-line objects), the whole shuffle order drawn up front from
+        ``default_rng(seed + epoch)`` as the JAX package draws it, and each
+        batch's lines joined for ``transform_text``.
+
+        Two differences from the streaming path, as in the JAX package: the
+        order (both are valid shuffles), and invalid UTF-8 reaches the
+        byte-oriented C++ parser raw where streaming replaces it with
+        U+FFFD."""
+        blobs: List[bytes] = []
+        fids: List[np.ndarray] = []
+        sts: List[np.ndarray] = []
+        ens: List[np.ndarray] = []
+        for path in self.files:
+            with open(path, "rb") as f:
+                data = f.read()
+            if not data:
+                continue
+            if not data.endswith(b"\n"):
+                data += b"\n"
+            arr = np.frombuffer(data, np.uint8)
+            nl = np.flatnonzero(arr == 10)
+            starts = np.empty(nl.size, np.int64)
+            starts[0] = 0
+            starts[1:] = nl[:-1] + 1
+            ends = nl - (arr[np.maximum(nl - 1, 0)] == 13)  # strip \r
+            keep = ends > starts
+            starts, ends = starts[keep], ends[keep]
+            blobs.append(data)
+            fids.append(np.full(starts.size, len(blobs) - 1, np.int32))
+            sts.append(starts)
+            ens.append(ends)
+        if not blobs:
+            return
+        fid = np.concatenate(fids)
+        st = np.concatenate(sts)
+        en = np.concatenate(ens)
+        orig = np.arange(fid.size, dtype=np.int64)
+        if self.num_shards > 1:
+            fid = fid[self.shard_index::self.num_shards]
+            st = st[self.shard_index::self.num_shards]
+            en = en[self.shard_index::self.num_shards]
+            orig = orig[self.shard_index::self.num_shards]
+        n = fid.size
+        if self.shuffle_buffer > 1 and n:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            self._epoch += 1
+            S = min(self.shuffle_buffer, n)
+            if S >= n:
+                order = rng.permutation(n)
+            else:
+                # the streaming buffer shuffle, its order computed up front:
+                # the buffer holds S indices; each draw sends slot j out and
+                # refills it with the next incoming index
+                order = np.empty(n, np.int64)
+                buf = np.arange(S)
+                js = rng.integers(0, S, n - S)
+                for k in range(n - S):
+                    j = js[k]
+                    order[k] = buf[j]
+                    buf[j] = S + k
+                order[n - S:] = buf[rng.permutation(S)]
+        else:
+            order = np.arange(n)
+        B = self.batch_size
+        for lo in range(0, n, B):
+            idx = order[lo:lo + B]
+            if idx.size < B and self.drop_remainder:
+                return
+            text = b"\n".join(blobs[fid[i]][st[i]:en[i]] for i in idx)
+            batch = self.transformer.transform_text(
+                text, int(idx.size), B, self.mode)
+            orig_idx = np.full(B, -1, np.int64)
+            orig_idx[:idx.size] = orig[idx]
+            yield batch, orig_idx
 
     def __iter__(self) -> Iterator[Batch]:
-        source = self._rows()
+        for batch, _ in self._iter_impl():
+            yield batch
+
+    def iter_with_indices(self) -> Iterator[Tuple[Batch, np.ndarray]]:
+        """(batch, row indices [batch_size] int64): each row's index among
+        the files' non-empty lines before sharding, -1 for the padding rows
+        of a partial last batch."""
+        yield from self._iter_impl()
+
+    def _iter_impl(self) -> Iterator[Tuple[Batch, np.ndarray]]:
+        if self._fast_path_ok():
+            yield from self._iter_native_fast()
+            return
+        pairs = (self._raw_lines_indexed() if self._native
+                 else self._rows_indexed())
         if self.shuffle_buffer > 1:
             rng = np.random.default_rng(self.seed + self._epoch)
             self._epoch += 1
             buf: List = []
 
-            def shuffled(rows):
-                for r in rows:
+            def shuffled():
+                for r in pairs:
                     buf.append(r)
                     if len(buf) >= self.shuffle_buffer:
                         j = rng.integers(len(buf))
@@ -393,17 +506,30 @@ class CsvDataset:
                         yield buf.pop()
                 for j in rng.permutation(len(buf)):
                     yield buf[j]
-            source = shuffled(source)
+            source = shuffled()
+        else:
+            source = pairs
         chunk: List = []
-        for r in source:
+        idxs: List[int] = []
+        for idx, r in source:
             chunk.append(r)
+            idxs.append(idx)
             if len(chunk) == self.batch_size:
-                yield self._emit(chunk)
-                chunk = []
+                yield self._emit(chunk), self._pad_idxs(idxs)
+                chunk, idxs = [], []
         if chunk and not self.drop_remainder:
-            yield self._emit(chunk)
+            yield self._emit(chunk), self._pad_idxs(idxs)
+
+    def _pad_idxs(self, idxs: List[int]) -> np.ndarray:
+        out = np.full(self.batch_size, -1, np.int64)
+        out[:len(idxs)] = idxs
+        return out
 
     def _emit(self, chunk: List) -> Batch:
+        if self._native:
+            text = "\n".join(chunk).encode("utf-8", errors="replace")
+            return self.transformer.transform_text(
+                text, len(chunk), self.batch_size, self.mode)
         return self.transformer.transform(chunk, self.batch_size, self.mode)
 
 
@@ -411,9 +537,18 @@ def default_transformer(plan: FeaturePlan, n_classes: int = 2,
                         pos_weight: Optional[float] = None,
                         neg_weight: Optional[float] = None,
                         num_parallel_calls: Optional[int] = None):
-    """The Python transformer (``num_parallel_calls`` is accepted for the
-    JAX package's signature; the native parser it sizes is not ported)."""
-    return FeatureTransformer(plan, n_classes, pos_weight, neg_weight)
+    """The native C++ transformer (``num_parallel_calls``, train.yaml's,
+    sets its thread count).  Only where no C++ compiler is found does the
+    Python transformer stand in, with a warning; a failed compile or load
+    raises."""
+    from wide_deep_tpu_torch.features import native
+    if native.find_compiler() is None:
+        log.warning("no C++ compiler found (%s): the native loader "
+                    "cannot be built from %s; using the Python loader",
+                    native.compiler_names(), native.SOURCE)
+        return FeatureTransformer(plan, n_classes, pos_weight, neg_weight)
+    return native.NativeTransformer(plan, n_classes, pos_weight, neg_weight,
+                                    n_threads=num_parallel_calls or 0)
 
 
 class PrefetchIterator:
@@ -453,3 +588,15 @@ class PrefetchIterator:
                 raise self._error
             raise StopIteration
         return item
+
+
+class DevicePrefetchIterator(PrefetchIterator):
+    """Host-to-device copies in a background thread, up to ``depth``
+    batches ahead of the consumer (the JAX package's
+    DevicePrefetchIterator): over a ``PrefetchIterator`` of parsed batches,
+    parse, copy and step overlap, and the sustained rate is that of the
+    slowest stage instead of their sum.  An exception in either thread is
+    raised in the consumer."""
+
+    def __init__(self, iterable, to_device, depth: int = 2):
+        super().__init__((to_device(b) for b in iterable), depth=depth)

@@ -267,6 +267,16 @@ class PlanConstants:
         self.n_continuous = len(plan.continuous_slots)
         self.indicator_wide_rows = np.asarray(plan.indicator_wide_rows,
                                               np.int64)
+        self._on_device: Dict[torch.device, torch.Tensor] = {}
+
+    def wide_rows_on(self, device: torch.device) -> torch.Tensor:
+        """``indicator_wide_rows`` on ``device``, copied there once: a step
+        issues no host-to-device copy of its own."""
+        rows = self._on_device.get(device)
+        if rows is None:
+            rows = torch.from_numpy(self.indicator_wide_rows).to(device)
+            self._on_device[device] = rows
+        return rows
 
 
 def indicator_block(batch: Dict[str, torch.Tensor], indicator_dim: int,

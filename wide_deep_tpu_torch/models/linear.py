@@ -50,6 +50,6 @@ def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         ind = batch.get("_ind_block")
         if ind is None:
             ind = indicator_block(batch, consts.indicator_dim)
-        rows = torch.as_tensor(consts.indicator_wide_rows, device=w.device)
-        out = out + torch.matmul(ind.float(), w.index_select(0, rows))
+        out = out + torch.matmul(ind.float(), w.index_select(
+            0, consts.wide_rows_on(w.device)))
     return out + params["b"]

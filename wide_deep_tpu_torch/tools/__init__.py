@@ -4,10 +4,12 @@
 * ``microbench_vmem_gather``: P1, the row gather from a resident pool
   (counterpart of tools/microbench_vmem_gather.py);
 * ``microbench_rowdma_scatter``: P2, the bulk row scatter (counterpart of
-  tools/microbench_rowdma_scatter.py).
+  tools/microbench_rowdma_scatter.py);
+* ``bench``: training throughput, the device step and the loader-to-card
+  path (counterpart of bench.py).
 
-Each runs on the card unless it is given ``--device cpu``, where its kernel
-wrapper takes the plain version.  Shared here: the argument parser, the
+Each runs on the card unless it is given ``--device cpu``, where the kernel
+wrappers take their plain versions.  Shared here: the argument parser, the
 devices line and the timer.
 """
 

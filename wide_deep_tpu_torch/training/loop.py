@@ -1,7 +1,7 @@
 """Trainer: the single-device training loop (a slim port of
-wide_deep_tpu/training/loop.py: construction, initialisation and
-``train_file``; evaluation, prediction, checkpoints and the multi-device
-paths are not ported yet).
+wide_deep_tpu/training/loop.py: construction, initialisation, ``train_file``
+behind the device prefetch, ``evaluate`` and ``predict``; checkpoints and
+the multi-device paths are not ported yet).
 """
 
 from __future__ import annotations
@@ -10,13 +10,15 @@ import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from wide_deep_tpu_torch import metrics as metrics_lib
 from wide_deep_tpu_torch.config import Config
 from wide_deep_tpu_torch.features.pipeline import (CsvDataset,
+                                                   DevicePrefetchIterator,
                                                    PrefetchIterator,
                                                    default_transformer)
 from wide_deep_tpu_torch.features.plan import FeaturePlan, fold_enabled
@@ -24,9 +26,14 @@ from wide_deep_tpu_torch.models.joint import (WideDeep, build_model,
                                               resolve_device)
 from wide_deep_tpu_torch.optim import build_joint_optimizer
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
-from wide_deep_tpu_torch.training.step import init_opt_state, train_step
+from wide_deep_tpu_torch.training.step import (eval_step, init_opt_state,
+                                               predict_step, train_step)
 
 log = logging.getLogger("wide_deep_tpu_torch")
+
+# every key of a packed transfer starts on this boundary: the kernels read
+# ids, perm and tiles with wide loads
+PACK_ALIGN = 256
 
 
 def build_training_plan(config: Config, train_conf: Dict[str, Any],
@@ -51,13 +58,61 @@ def build_training_plan(config: Config, train_conf: Dict[str, Any],
         sparse_opt=bool(train_conf.get("sparse_optimizer")) and kernels)
 
 
-def batch_to_device(batch: Dict[str, np.ndarray],
-                    device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host batch -> tensors on ``device``.  Window plans' ``ok`` flags stay
-    on the CPU: apply_window_plan branches on them without a device sync."""
-    return {k: (torch.from_numpy(v) if "_ok_" in k
-                else torch.from_numpy(v).to(device, non_blocking=True))
-            for k, v in batch.items()}
+def pack_layout(batch: Dict[str, np.ndarray]
+                ) -> Tuple[Dict[str, int], int]:
+    """Byte offsets of a batch's keys in one transfer buffer, each
+    ``PACK_ALIGN``-aligned, and the buffer's size.  The window plans' ``ok``
+    flags stay out: they stay on the host, where apply_window_plan branches
+    on them without a device sync."""
+    offsets, n = {}, 0
+    for k, v in batch.items():
+        if "_ok_" in k:
+            continue
+        offsets[k] = n
+        n += -(-v.nbytes // PACK_ALIGN) * PACK_ALIGN
+    return offsets, n
+
+
+def pack_into(staging: np.ndarray, batch: Dict[str, np.ndarray],
+              offsets: Dict[str, int]) -> None:
+    """Copy each laid-out key's bytes into the uint8 buffer ``staging``."""
+    for k, off in offsets.items():
+        v = np.ascontiguousarray(batch[k])
+        staging[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
+
+
+def unpack(buf: torch.Tensor, batch: Dict[str, np.ndarray],
+           offsets: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """Per-key views of the uint8 tensor ``buf`` filled by ``pack_into``;
+    keys left out of the layout (the ``ok`` flags) as host tensors."""
+    out = {}
+    for k, v in batch.items():
+        if k in offsets:
+            dt = torch.from_numpy(np.empty(0, v.dtype)).dtype
+            out[k] = buf[offsets[k]:offsets[k] + v.nbytes].view(dt).view(
+                v.shape)
+        else:
+            out[k] = torch.from_numpy(v)
+    return out
+
+
+class DeviceBatch(dict):
+    """A batch on the card: views of one device buffer, filled by one copy
+    on a side stream that records ``ready``.  ``claim`` makes the current
+    stream wait for the copy and keeps the buffer alive until that stream's
+    work on it is done."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor],
+                 buffer: torch.Tensor, ready: torch.cuda.Event):
+        super().__init__(tensors)
+        self.buffer = buffer
+        self.ready = ready
+
+    def claim(self) -> "DeviceBatch":
+        stream = torch.cuda.current_stream(self.buffer.device)
+        stream.wait_event(self.ready)
+        self.buffer.record_stream(stream)
+        return self
 
 
 class Trainer:
@@ -101,7 +156,8 @@ class Trainer:
         self.pos_weight = self.train_conf.get("pos_sample_loss_weight")
         self.neg_weight = self.train_conf.get("neg_sample_loss_weight")
         self.transformer = default_transformer(
-            self.plan, n_classes, self.pos_weight, self.neg_weight)
+            self.plan, n_classes, self.pos_weight, self.neg_weight,
+            num_parallel_calls=self.train_conf.get("num_parallel_calls"))
         self.params = None
         self.mstate = None
         self.opt_state = None
@@ -109,6 +165,7 @@ class Trainer:
         self.losses: List[torch.Tensor] = []   # per-step loss, on device
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        self._copy_stream: Optional[torch.cuda.Stream] = None
 
     def ensure_initialized(self):
         """Draw params and BN state from the seed unless they were set (the
@@ -127,20 +184,57 @@ class Trainer:
             self.opt_state = init_opt_state(self.tx, self.params,
                                             self.sparse_tables)
 
-    def train_batch(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """One step on a host batch; returns the loss (on device)."""
+    # ------------------------------------------------------------- transfer
+    def _to_device(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """Host batch -> tensors on the Trainer's device: the JAX package's
+        one ``device_put`` a batch.  On the card every key but the window
+        plans' ``ok`` flags is packed into one pinned buffer
+        (``pack_layout``) and sent by one copy on a side stream; the result
+        is a DeviceBatch whose ``claim`` orders the consumer's stream after
+        the copy.  Safe to call from a prefetch thread.  On the CPU: views
+        of the numpy arrays."""
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v) for k, v in batch.items()}
+        offsets, n = pack_layout(batch)
+        with torch.cuda.device(self.device):
+            host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            pack_into(host.numpy(), batch, offsets)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream()
+            stream = self._copy_stream
+            with torch.cuda.stream(stream):
+                buf = torch.empty(n, dtype=torch.uint8, device=self.device)
+                buf.copy_(host, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+        return DeviceBatch(unpack(buf, batch, offsets), buf, ready)
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """A host batch through ``_to_device``; a DeviceBatch claimed for
+        the current stream; tensors as they are."""
+        if any(isinstance(v, np.ndarray) for v in batch.values()):
+            batch = self._to_device(batch)
+        if isinstance(batch, DeviceBatch):
+            batch.claim()
+        return batch
+
+    # ---------------------------------------------------------------- train
+    def train_batch(self, batch) -> torch.Tensor:
+        """One step on a host batch (numpy arrays) or on one already on the
+        device (``_to_device``'s); returns the loss (on device)."""
         self.ensure_initialized()
         self.mstate, loss = train_step(
             self.model, self.tx, self.params, self.mstate, self.opt_state,
-            batch_to_device(batch, self.device), self.sparse_tables,
-            rng=self._gen)
+            self._device_batch(batch), self.sparse_tables, rng=self._gen)
         self.global_step += 1
         self.losses.append(loss)
         return loss
 
-    def _dataset(self, path: str, epoch_seed: int = 0) -> CsvDataset:
+    def _dataset(self, path: str, mode: str,
+                 epoch_seed: int = 0) -> CsvDataset:
         return CsvDataset(
-            self.plan, path, "train", self.batch_size,
+            self.plan, path, mode, self.batch_size,
             n_classes=self.n_classes, pos_weight=self.pos_weight,
             neg_weight=self.neg_weight,
             shuffle_buffer=int(self.train_conf["num_examples"]),
@@ -149,15 +243,52 @@ class Trainer:
     def train_file(self, path: str, epoch_seed: int = 0,
                    max_steps: Optional[int] = None) -> float:
         """Train over one file (at most ``max_steps`` batches); returns the
-        last batch loss."""
+        last batch loss.  Parse, host-to-device copy and step overlap: the
+        loader and the copy each run in a thread of their own."""
         self.ensure_initialized()
         t0 = time.time()
         loss = None
-        batches = iter(self._dataset(path, epoch_seed))
+        batches = iter(self._dataset(path, "train", epoch_seed))
         if max_steps is not None:
             batches = itertools.islice(batches, max_steps)
-        for batch in PrefetchIterator(batches):
+        for batch in DevicePrefetchIterator(PrefetchIterator(batches),
+                                            self._to_device):
             loss = self.train_batch(batch)
         log.info("finished %s in %.1f s (step %d)", os.path.basename(path),
                  time.time() - t0, self.global_step)
         return float("nan") if loss is None else float(loss)
+
+    # ---------------------------------------------------------- eval, pred
+    def evaluate(self, data_path: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None) -> Dict[str, float]:
+        """The metric set (metrics.py) over ``data_path`` (default: the
+        train conf's ``test_data``) with the current params, plus
+        ``global_step``."""
+        if checkpoint_path:
+            raise NotImplementedError("checkpoints are not ported yet")
+        self.ensure_initialized()
+        data_path = data_path or self.train_conf["test_data"]
+        acc = metrics_lib.init_metrics(device=self.device)
+        for batch in PrefetchIterator(self._dataset(data_path, "eval")):
+            acc = eval_step(self.model, self.params, self.mstate,
+                            self._device_batch(batch), acc)
+        results = metrics_lib.finalize_metrics(acc,
+                                               binary=self.n_classes == 2)
+        results["global_step"] = self.global_step
+        return results
+
+    def predict(self, data_path: Optional[str] = None,
+                checkpoint_path: Optional[str] = None
+                ) -> Iterator[Dict[str, Any]]:
+        """Per-example predictions over ``data_path`` (default:
+        ``test_data``), streamed: one dict of numpy values per real row."""
+        if checkpoint_path:
+            raise NotImplementedError("checkpoints are not ported yet")
+        self.ensure_initialized()
+        data_path = data_path or self.train_conf["test_data"]
+        for batch in PrefetchIterator(self._dataset(data_path, "pred")):
+            preds = predict_step(self.model, self.params, self.mstate,
+                                 self._device_batch(batch))
+            preds = {k: v.cpu().numpy() for k, v in preds.items()}
+            for i in range(int(batch["mask"].sum())):
+                yield {k: v[i] for k, v in preds.items()}

@@ -1,5 +1,5 @@
 """The single-device train step (port of the non-deferred single-device
-path of wide_deep_tpu/training/step.py).
+path of wide_deep_tpu/training/step.py), and the eval and predict steps.
 
 One step: forward + loss, gradients by autograd, the dense per-arm update
 (FTRL for ``linear`` including the fold columns, Adagrad for ``dnn``), then
@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from wide_deep_tpu_torch import metrics as metrics_lib
 from wide_deep_tpu_torch.models.joint import WideDeep
 from wide_deep_tpu_torch.optim import JointOptimizer, tree_get, tree_items
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
@@ -63,3 +64,28 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         sparse_lib.apply_fused_update(t, tree_get(params, t.path), rg,
                                       plan, opt_state["sparse"][name])
     return new_mstate, loss.detach()
+
+
+@torch.no_grad()
+def eval_step(model: WideDeep, params, mstate,
+              batch: Dict[str, torch.Tensor], acc):
+    """Fold one eval batch into the metric accumulators (metrics.py)."""
+    _, (_, per_ex, preds) = model.loss_fn(params, mstate, batch,
+                                          training=False)
+    if model.n_classes == 2:
+        probs = preds["logistic"]
+        correct = None                  # (p >= 0.5) == label
+    else:
+        # multiclass: accuracy from argmax(probabilities) == label; probs
+        # feeds only the threshold metrics, which finalize drops
+        probs = preds["probabilities"].max(dim=-1).values
+        correct = preds["class_ids"] == batch["label"].to(torch.int32)
+    w = batch["weight"] * batch["mask"]
+    return metrics_lib.update_metrics(acc, probs, batch["label"], w, per_ex,
+                                      correct=correct)
+
+
+@torch.no_grad()
+def predict_step(model: WideDeep, params, mstate,
+                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return model.predict(params, mstate, batch)
