@@ -11,8 +11,9 @@ each on stdout:
 
 0. the card's name and power limit (nvidia-smi), the kernels' and the
    loader's build times;
-1. K1 (range scatter-add) at the production d8, d4 and d32-compact shapes,
-   K2 (window scatter-add) at the d16 shape, K1 again on that d16 stream as
+1. K1 (range scatter-add) at the production d8, d4, d32-compact and wide
+   (the wide arm's gather backward) shapes, K2 (window scatter-add) at the
+   d16 shape, K1 again on that d16 stream as
    the window plan's ok=0 branch runs it, K3 (row write-back) and P2 (bulk
    row scatter) on one [10,000,128, 128] float32 table with sentinel uids,
    P2 again at that shape in bfloat16, P1 (resident gather) at its tool's
@@ -29,8 +30,8 @@ each on stdout:
    native loader's fast path, then one host-to-device copy a batch, both in
    prefetch threads), then 5 steps on seeded synthetic batches; every step,
    each read on its own,
-   must launch K1 once at each of its three sites (d8, d4, d32 compact) and
-   K2 and K3 once each, except that a file batch whose d16 plan says ok=0
+   must launch K1 once at each of its four sites (d8, d4, d32 compact,
+   wide) and K2 and K3 once each, except that a file batch whose d16 plan says ok=0
    launches K1 on the d16 stream in K2's place (its line says so); losses
    and params must stay finite, touched d32 rows must change and an
    untouched one not;
@@ -54,6 +55,21 @@ each on stdout:
    at batch 25600 with 6 end-to-end batches, once phase 2's Trainer is
    freed: its JSON line must hold every key, and each of its train steps
    must launch the kernels as phase 2's do;
+6. the CLIs with checkpoints, once phase 5's objects are freed, on conf/
+   copied to a temporary dir (pack_budget 3; runconfig: a checkpoint and a
+   summary every 2 steps, 2 checkpoints kept, a step log every step) over
+   generated TSVs (two train files of 51,200 rows, eval and test files of
+   25,600): ``tools.train.main`` in-process (train_and_eval, one epoch, 4
+   steps at batch 25600), each step's launches read on its own as in phase
+   2; steps 2 and 4 on disk and no more, the d32 table 64 columns wide
+   there; the checkpoint's bytes and its save and restore seconds; step 4
+   restored into a new Trainer equal to the CLI's final state leaf by leaf,
+   bit for bit; a Trainer restored from the pinned step 2 training the
+   second file again: its losses and final state bit for bit the CLI's
+   steps 3-4; ``tools.eval.main`` from the pinned step 2 and from the
+   latest (equal to the CLI Trainer's own evaluate), with no kernel launch;
+   ``tools.pred.main``'s one line a test row; the summary file's scalar and
+   histogram tags; ``tools.inspect_checkpoint.main`` listing every leaf;
 then one JSON line describing the kernels, and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
@@ -135,10 +151,13 @@ def bits(t):
 
 def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
                   in_bytes_per_el, extra_bytes, source, replaces,
-                  memset=False):
+                  memset=False, magnitudes=None):
     """Hold one scatter kernel against its plain version, require the same
     bits from two calls, and time it.  ``memset``: the kernel clears its
-    output first; the row then also gives the bound with those bytes."""
+    output first; the row then also gives the bound with those bytes.
+    ``magnitudes``: the plain sum of |g| (rows summing thousands of
+    repeats): float32 round-off grows with the magnitudes summed, not with
+    what is left after they cancel, so the tolerance is 1e-6 of it."""
     import torch
     got = fn()
     again = fn()
@@ -151,6 +170,9 @@ def check_scatter(name, fn, plain, library, out_dtype, n_live, d, rows,
     if out_dtype == torch.bfloat16:
         tol = BF16_TOL * wf.abs() + 1e-6   # each rounds its f32 sum once
         tol_text = "<= 1 bf16 ulp (2^-7 rel) + 1e-6"
+    elif magnitudes is not None:
+        tol = 1e-6 * magnitudes().float() + 1e-6
+        tol_text = "<= 1e-6 of the row's sum of |g| + 1e-6"
     else:
         tol = 1e-5 * wf.abs() + 1e-5       # f32 sums in another order
         tol_text = "<= 1e-5 rel + 1e-5"
@@ -271,6 +293,26 @@ def phase_kernels(plan, batch, device):
             lambda: torch.zeros((rows, width), dtype=in_dt,
                                 device=device).index_add_(0, lib_ids, lib_g),
             in_dt, n_live, width, rows, 2, 0, src, rep, memset=True))
+    # the wide gather's backward: the pooled wide ids sorted stably, one
+    # float32 gradient column, into the [wide_dim, 1] table's gradient
+    wide = batch["wide_ids"].reshape(-1)
+    wperm = np.argsort(wide, kind="stable").astype(np.int32)
+    w_ids = torch.from_numpy(wide[wperm]).to(device)
+    w_perm = torch.from_numpy(wperm).to(device)
+    w_g = torch.randn((wide.size, 1), generator=gen, device=device)
+    w_rows = plan.wide_dim
+    rows_out.append(check_scatter(
+        "K1 range_scatter_add wide",
+        lambda: scatter.sorted_stream_sum(w_ids, w_perm, w_g, w_rows,
+                                          torch.float32),
+        lambda: scatter.range_scatter_add_plain(w_ids, w_perm, w_g, w_rows,
+                                                torch.float32),
+        lambda: torch.zeros((w_rows, 1), device=device).index_add_(
+            0, w_ids.long(), w_g[w_perm.long()]),
+        torch.float32, wide.size, 1, w_rows, 4, 0, src, rep, memset=True,
+        magnitudes=lambda: scatter.range_scatter_add_plain(
+            w_ids, w_perm, w_g.abs(), w_rows, torch.float32)))
+    del w_ids, w_perm, w_g
     # d32 compact sum of the fused sparse optimizer: f32 in and out
     ids, perm, tiles, g, lib_ids, lib_g, n_live = stream(
         "sopt", 32, 32, torch.float32, BATCH * plan.group_packed_len[32])
@@ -383,12 +425,13 @@ def phase_kernels(plan, batch, device):
 
 
 # K1's call sites on the production step, by the gradient width D they pass
-# (17: the d16 fold's stream, summed by K1 when its window plan says ok=0)
-K1_SITES = {9: "d8", 5: "d4", 32: "d32 compact", 17: "d16 ok=0"}
-# launches each production step must add: K1 once at each of its three
-# range-plan sites, K3 once, and on the d16 stream either K2 (ok=1) or K1
-# (ok=0) once
-PER_STEP = {"K1 d8": 1, "K1 d4": 1, "K1 d32 compact": 1, "K3": 1}
+# (17: the d16 fold's stream, summed by K1 when its window plan says ok=0;
+# 1: the wide table's gather, summed by K1 over its stably sorted ids)
+K1_SITES = {9: "d8", 5: "d4", 32: "d32 compact", 17: "d16 ok=0", 1: "wide"}
+# launches each production step must add: K1 once at each of its four
+# sites, K3 once, and on the d16 stream either K2 (ok=1) or K1 (ok=0) once
+PER_STEP = {"K1 d8": 1, "K1 d4": 1, "K1 d32 compact": 1, "K1 wide": 1,
+            "K3": 1}
 
 
 def counts():
@@ -420,12 +463,12 @@ def delta(before, after):
 
 def check_step(what, d):
     """One production step's counter changes ``d``: K1 once at each of its
-    three range-plan sites, K3 once, the probes (P1, P2) never, and on the
+    four sites, K3 once, the probes (P1, P2) never, and on the
     d16 stream K2 once, or (ok=0) K1 once at D=17 and K2 never."""
     ok0 = d["d16 ok=0"]
     want = dict(PER_STEP, **{"K1 d16 ok=0": ok0})
     got = {k: d.get(k, 0) for k in want}
-    if (got != want or ok0 + d["K2"] != 1 or d["K1"] != 3 + ok0
+    if (got != want or ok0 + d["K2"] != 1 or d["K1"] != 4 + ok0
             or d["P1"] or d["P2"]):
         raise SystemExit(f"{what} launched {d}")
 
@@ -529,7 +572,8 @@ def phase_trainer(card, tmp):
     log(f"phase 2b: 5 synthetic steps, median step "
         f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
         f"{max(step_ms):.2f}) at batch {BATCH} on {card}; losses {losses}; "
-        f"launches per step K1 3 (d8, d4, d32 compact 1 each), K2 1, K3 1; "
+        f"launches per step K1 4 (d8, d4, d32 compact, wide 1 each), K2 1, "
+        f"K3 1; "
         f"peak memory {peak:.2f} GB")
     profile_steps(trainer, rng)
     return trainer, tsv, main_counts
@@ -682,7 +726,7 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms",
 def phase_bench(card):
     """Phase 5: the bench tool's ``main`` as a user runs it (batch 25600,
     6 end-to-end batches); its JSON line must hold every key, and each of
-    its train steps must launch K1 at its three sites, K3, and K2 or (d16
+    its train steps must launch K1 at its four sites, K3, and K2 or (d16
     ok=0) K1 once more, as phase 2's steps do."""
     from wide_deep_tpu_torch.tools import bench
     env = {"BENCH_E2E_BATCHES": "6"}
@@ -706,15 +750,286 @@ def phase_bench(card):
         raise SystemExit(f"phase 5: the bench names {out['device']!r}")
     n = out["train_steps"]
     ok0 = d["d16 ok=0"]
-    want = {"K1 d8": n, "K1 d4": n, "K1 d32 compact": n, "K3": n}
+    want = {"K1 d8": n, "K1 d4": n, "K1 d32 compact": n, "K1 wide": n,
+            "K3": n}
     if ({k: d.get(k, 0) for k in want} != want or d["K2"] + ok0 != n
-            or d["K1"] != 3 * n + ok0 or d["P1"] or d["P2"]):
+            or d["K1"] != 4 * n + ok0 or d["P1"] or d["P2"]):
         raise SystemExit(f"phase 5: {n} steps launched {d}")
     log(f"phase 5: bench in {time.time() - t0:.1f} s: step "
         f"{out['step_ms']:.2f} ms, end to end "
         f"{out['end_to_end_step_ms']:.2f} ms/step; {n} train steps launched "
         f"K1 {d['K1']} ({ok0} on d16 ok=0), K2 {d['K2']}, K3 {d['K3']}")
     return d
+
+
+CLI_RUNCONFIG = {"save_checkpoints_steps": 2, "save_checkpoints_secs": "",
+                 "keep_checkpoint_max": 2, "save_summary_steps": 2,
+                 "log_step_count_steps": 1}
+CLI_TRAIN_ROWS, CLI_EVAL_ROWS = 2 * BATCH, BATCH
+# the fused d32 table and its live width on disk: (1 + 1 Adagrad slot) x 32
+FUSED_LEAF, FUSED_LIVE = ("dnn", "embed", "d32"), 64
+
+
+def same_bits(a, b):
+    """Whether two trees of tensors and ints are equal leaf by leaf, bit for
+    bit (tensors compared on their device) -> the differing leaves."""
+    import torch
+
+    from wide_deep_tpu_torch.optim import tree_items
+    la, lb = dict(tree_items(a)), dict(tree_items(b))
+    if sorted(map(str, la)) != sorted(map(str, lb)):
+        return ["<tree structure>"]
+    bad = []
+    for path, va in la.items():
+        vb = lb[path]
+        if isinstance(va, torch.Tensor):
+            ok = (va.dtype == vb.dtype and va.shape == vb.shape
+                  and torch.equal(va.detach().reshape(-1).view(torch.uint8),
+                                  vb.detach().reshape(-1).view(torch.uint8)))
+        else:
+            ok = va == vb
+        if not ok:
+            bad.append("/".join(map(str, path)))
+    return bad
+
+
+def state_diff(a, b):
+    return [f"{what}/{leaf}" for what in ("params", "mstate", "opt_state")
+            for leaf in same_bits(getattr(a, what), getattr(b, what))]
+
+
+def phase_cli(card):
+    """Phase 6: train -> restore -> resume -> eval -> pred -> inspect
+    through the port's CLIs and checkpoints at the production config (see
+    the module docstring).  -> the launches of the CLI's train run."""
+    import contextlib
+    import gc
+    import io
+    import math
+    import re
+
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.optim import tree_get
+    from wide_deep_tpu_torch.tools import eval as eval_tool
+    from wide_deep_tpu_torch.tools import inspect_checkpoint, pred, train
+    from wide_deep_tpu_torch.tools.common import (base_parser,
+                                                  overrides_from, parse_args)
+    from wide_deep_tpu_torch.training import checkpoint as ck
+    from wide_deep_tpu_torch.training.loop import Trainer
+    from wide_deep_tpu_torch.training.summary import read_records
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cwd = os.getcwd()
+    real_step, real_save = Trainer.train_batch, ck.CheckpointManager.save
+    try:
+        os.chdir(tmp)                   # the train tool's logs/train.pid
+        conf = os.path.join(tmp, "conf")
+        shutil.copytree(os.path.join(ROOT, "conf"), conf)
+        path = os.path.join(conf, "train.yaml")
+        with open(path) as f:
+            text = f.read().replace("pack_budget: auto", "pack_budget: 3")
+        for key, value in CLI_RUNCONFIG.items():
+            text, n = re.subn(rf"(\n  {key}:)[^\n]*", rf"\1 {value}", text)
+            if n != 1:
+                raise SystemExit(f"phase 6: no {key} in conf/train.yaml")
+        with open(path, "w") as f:
+            f.write(text)
+        config = Config(conf)
+        os.makedirs(os.path.join(tmp, "train"))
+        t0 = time.time()
+        files = {"train/part1": (CLI_TRAIN_ROWS, 21),
+                 "train/part2": (CLI_TRAIN_ROWS, 22),
+                 "eval.tsv": (CLI_EVAL_ROWS, 23),
+                 "test.tsv": (CLI_EVAL_ROWS, 24)}
+        for name, (n, seed) in files.items():
+            testing.generate_ctr_tsv(config, os.path.join(tmp, name), n,
+                                     seed=seed, hash_spread=None)
+        gen_s = time.time() - t0
+        model_dir = os.path.join(tmp, "model", "wide_deep")
+        argv = ["--conf_dir", conf, "--model_dir",
+                os.path.join(tmp, "model"), "--batch_size", str(BATCH),
+                "--train_data", os.path.join(tmp, "train"),
+                "--eval_data", os.path.join(tmp, "eval.tsv"),
+                "--test_data", os.path.join(tmp, "test.tsv")]
+
+        # (1) the CLI's train, each step's launches and time read on its own
+        steps, step_ms, saves = [], [], []
+
+        def counted(self, batch, with_summaries=False):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            loss = real_step(self, batch, with_summaries=with_summaries)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(delta(c0, counts()))
+            return loss
+
+        def recorded(self, step, tree, force=False):
+            real_save(self, step, tree, force=force)
+            if self.last_save.get("step") == step and not any(
+                    s is self.last_save for s in saves):
+                saves.append(self.last_save)
+
+        Trainer.train_batch = counted
+        ck.CheckpointManager.save = recorded
+        reset_counts()                  # the CLI path starts here
+        t0 = time.time()
+        cli = train.main(argv + ["--keep_train", "0", "--train_epochs", "1",
+                                 "--dynamic_train", "0"])
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        cli_counts = counts()
+        Trainer.train_batch, ck.CheckpointManager.save = real_step, real_save
+        if len(steps) != 4 or cli.global_step != 4:
+            raise SystemExit(f"phase 6: the CLI took {len(steps)} steps")
+        for i, d in enumerate(steps):
+            check_step(f"phase 6: CLI step {i + 1}", d)
+        on_disk = ck.committed_steps(model_dir)
+        if on_disk != [2, 4] or [s["step"] for s in saves] != [2, 4]:
+            raise SystemExit(f"phase 6: steps {on_disk} on disk, saves "
+                             f"{saves}")
+        d32 = ck.read_index(model_dir, 4)["tensors"][
+            "params/" + "/".join(FUSED_LEAF)]
+        rows = tree_get(cli.params, FUSED_LEAF).shape[0]
+        if d32["shape"] != [rows, FUSED_LIVE]:
+            raise SystemExit(f"phase 6: the d32 table on disk is {d32}")
+        ck_bytes = [s["bytes"] for s in saves]
+        copy_s = ", ".join(f"{s['copy_s']:.2f}" for s in saves)
+        write_s = ", ".join(f"{s['write_s']:.2f}" for s in saves)
+        cli_losses = [float(x) for x in cli.losses]
+        log(f"phase 6: generated {sum(n for n, _ in files.values())} rows in "
+            f"{gen_s:.1f} s; tools.train.main: 4 steps in {train_s:.1f} s "
+            f"(two evaluations of the eval file and one of the test file, "
+            f"the checkpoints and summaries included); step time "
+            f"{', '.join(f'{x:.2f}' for x in step_ms)} ms (each synced); "
+            f"losses {cli_losses}; launches per step {steps}; on disk "
+            f"steps {on_disk}, d32 {d32['shape']} {d32['dtype']}; "
+            f"checkpoint bytes {ck_bytes}; host copy {copy_s} s, write "
+            f"{write_s} s (in the writer thread) on {card}")
+
+        # (2) step 4 into a new Trainer: every leaf bit for bit
+        p, cfg = base_parser("chip_smoke", argv)
+        over = overrides_from(parse_args(p, argv))
+        over["keep_train"] = True
+
+        def new_trainer():
+            tr = Trainer(cfg, "wide_deep", overrides=over, device="cuda")
+            tr.ensure_initialized(restore=False)
+            torch.cuda.synchronize()
+            return tr
+
+        fresh = new_trainer()
+        t0 = time.perf_counter()
+        fresh._restore_tree(fresh._ckpt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = state_diff(cli, fresh)
+        if bad or fresh.global_step != 4 or not torch.equal(
+                fresh._gen.get_state(), cli._gen.get_state()):
+            raise SystemExit(f"phase 6: the restored step 4 differs: {bad}")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 6: step 4 restored into a new Trainer in {restore_s:.2f}"
+            f" s ({ck_bytes[-1] / restore_s / 1e9:.2f} GB/s): every leaf "
+            f"bit for bit the CLI's (torch.equal of the bytes on the card)")
+
+        # (6) the summaries, before the resume writes its own
+        sdir = os.path.join(model_dir, "summaries")
+        blob = b"".join(rec for name in os.listdir(sdir)
+                        for rec in read_records(os.path.join(sdir, name)))
+        tags = [b"loss", b"dnn_0/hiddenlayer_2/activation_std",
+                b"dnn_0/hiddenlayer_0/zero_fraction",
+                b"dnn/towers/0/hidden/0/kernel", b"dnn/towers/0/logits/bias"]
+        missing = [t for t in tags if t not in blob]
+        if missing:
+            raise SystemExit(f"phase 6: the summaries lack {missing}")
+
+        # (3) resume from the pinned step 2 over the second file
+        res = new_trainer()
+        res._restore_pinned(os.path.join(model_dir, "2"))
+        if res.global_step != 2:
+            raise SystemExit(f"phase 6: pinned restore gave step "
+                             f"{res.global_step}")
+        t0 = time.time()
+        res.train_file(os.path.join(tmp, "train", "part2"), epoch_seed=0)
+        torch.cuda.synchronize()
+        res_losses = [float(x) for x in res.losses]
+        bad = state_diff(cli, res)
+        if res_losses != cli_losses[2:] or bad:
+            raise SystemExit(f"phase 6: the resume from step 2 differs from "
+                             f"the CLI's steps 3-4: losses {res_losses} vs "
+                             f"{cli_losses[2:]}; leaves {bad}")
+        log(f"phase 6: resumed from the pinned step 2, trained part2 in "
+            f"{time.time() - t0:.1f} s: losses {res_losses} and every leaf "
+            f"bit for bit the CLI's steps 3-4")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (4) eval from the pinned step 2 and from the latest; (5) pred;
+        # (7) inspect
+        test_tsv = os.path.join(tmp, "test.tsv")
+        want = cli.evaluate(test_tsv)
+        c0 = counts()
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            pinned = eval_tool.main(argv + ["--checkpoint_path",
+                                            os.path.join(model_dir, "2")])
+            gc.collect()
+            latest = eval_tool.main(argv + ["--checkpoint_path", model_dir])
+            gc.collect()
+        eval_s = time.time() - t0
+        for name, res in (("pinned", pinned), ("latest", latest)):
+            if (not all(math.isfinite(v) for v in res.values())
+                    or not 0.0 <= res["auc"] <= 1.0):
+                raise SystemExit(f"phase 6: {name} eval gave {res}")
+        if pinned["global_step"] != 2 or latest != want:
+            raise SystemExit(f"phase 6: eval pinned {pinned}, latest "
+                             f"{latest}, the CLI Trainer's own {want}")
+        del cli
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            n_pred = pred.main(argv)
+        pred_s = time.time() - t0
+        lines = out.getvalue().splitlines()
+        fmt = re.compile(r"\d+\tclass: [01]\tprobability: \d\.\d{6}")
+        if (n_pred != CLI_EVAL_ROWS or len(lines) != CLI_EVAL_ROWS
+                or not all(fmt.fullmatch(x) for x in lines)
+                or not lines[-1].startswith(f"{CLI_EVAL_ROWS - 1}\t")):
+            raise SystemExit(f"phase 6: pred printed {len(lines)} lines, "
+                             f"e.g. {lines[:2]}")
+        d = {k: v for k, v in delta(c0, counts()).items() if v}
+        if d:
+            raise SystemExit(f"phase 6: eval/pred launched {d}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            listed = inspect_checkpoint.main(["--model_dir", model_dir])
+        index = ck.read_index(model_dir, 4)
+        names = sorted(list(index["tensors"]) + list(index["ints"]))
+        printed = [x.split("  ")[0] for x in out.getvalue().splitlines()]
+        if sorted(listed) != names or printed != names:
+            raise SystemExit(f"phase 6: the inspector listed {len(printed)} "
+                             f"of {len(names)} leaves")
+        log(f"phase 6: tools.eval.main pinned step 2 {pinned}; latest "
+            f"{latest} (== the CLI Trainer's evaluate) in {eval_s:.1f} s for "
+            f"both; tools.pred.main {len(lines)} lines in {pred_s:.1f} s; no "
+            f"kernel launched; summaries hold {[t.decode() for t in tags]}; "
+            f"the inspector listed all {len(names)} leaves; phase 6 in "
+            f"{time.time() - t_phase:.1f} s")
+        return cli_counts
+    finally:
+        Trainer.train_batch, ck.CheckpointManager.save = real_step, real_save
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def count_key(name):
@@ -733,6 +1048,12 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    try:
+        import wide_deep_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        # alone, without the repo beside it: no result, a reason
+        print(f"chip_smoke: {e}; run it from the repo's root", file=sys.stderr)
+        return 2
     import numpy as np
 
     from concurrent.futures import ThreadPoolExecutor
@@ -778,12 +1099,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_bench(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_counts = phase_cli(card)
 
     # K1 (the d16 ok=0 site on file steps), K2 and K3 launch on the train
-    # path, P1 and P2 on the tools' path
+    # path, P1 and P2 on the tools' path; the CLI path's launches beside
     paths = dict(main_counts, **tool_counts)
     for row in kernels:
         row["launches"] = paths.get(count_key(row["name"]), 0)
+        if not row["name"].startswith("P"):
+            row["launches_cli"] = cli_counts.get(count_key(row["name"]), 0)
         if "bf16" in row:
             row["bf16"]["launches"] = tool_counts["P2 bf16"]
     if not all(row["launches"] > 0 for row in kernels):

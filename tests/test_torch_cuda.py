@@ -397,9 +397,11 @@ def test_cuda_window_plan_ok0_runs_k1(cuda_device):
 def test_cuda_train_file_is_deterministic(cuda_device, tmp_path,
                                           monkeypatch):
     """Two Trainer.train_file runs over one generated TSV, with bfloat16
-    embeddings and window plans on the folded group, give the same losses
-    and params bit for bit.  At batch 384 window 0 of d4 holds more than
-    T_IDS ids, so every step's plan says ok=0 and takes K1."""
+    embeddings and window plans on the folded group, give the same losses,
+    params and optimizer state bit for bit (the wide table's FTRL n and z
+    too: its gather's backward sums repeated ids in one order).  At batch
+    384 window 0 of d4 holds more than T_IDS ids, so every step's plan says
+    ok=0 and takes K1."""
     import os
 
     from wide_deep_tpu_torch.config import Config
@@ -436,11 +438,13 @@ def test_cuda_train_file_is_deterministic(cuda_device, tmp_path,
         assert (tsc.window_ok0_launches - before[0],
                 tsc.window_launches - before[1]) == (steps, 0)
         runs.append(([float(x) for x in trainer.losses],
-                     {p: v.detach().cpu() for p, v in
-                      tree_items(trainer.params)}))
+                     {(what,) + p: v.detach().cpu()
+                      for what in ("params", "opt_state")
+                      for p, v in tree_items(getattr(trainer, what))
+                      if isinstance(v, torch.Tensor)}))
     (losses_a, params_a), (losses_b, params_b) = runs
     assert len(losses_a) == steps and losses_a == losses_b
-    assert sorted(params_a) == sorted(params_b)
+    assert sorted(map(str, params_a)) == sorted(map(str, params_b))
     for p, v in params_a.items():
         w = params_b[p]
         assert v.dtype == w.dtype and torch.equal(
@@ -473,9 +477,11 @@ def test_cuda_trainer_matches_cpu(cuda_device, tmp_path, monkeypatch, mode):
                         lambda self, g, b: mode == "window" and g.folded)
     over = dict(batch_size=16, pack_budget=3, train_data=TRAIN1)
     cpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
-                  device="cpu", dtype=torch.float32)
+                  model_dir=str(tmp_path / "cpu"), device="cpu",
+                  dtype=torch.float32)
     gpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
-                  device="cuda", dtype=torch.float32)
+                  model_dir=str(tmp_path / "gpu"), device="cuda",
+                  dtype=torch.float32)
     cpu.ensure_initialized()
     gpu.params = {k: _to(v, cuda_device) for k, v in cpu.params.items()}
     gpu.mstate = {k: _to(v, cuda_device) for k, v in cpu.mstate.items()}
@@ -487,7 +493,9 @@ def test_cuda_trainer_matches_cpu(cuda_device, tmp_path, monkeypatch, mode):
     k1, k2, k3 = (tsc.range_launches - before[0],
                   tsc.window_launches - before[1],
                   trowdma.rowdma_launches - before[2])
-    assert k3 == 3 and k1 == (6 if mode == "range" else 3)
+    # K1 a step: the d4 fold (range mode), the d8 compact sum, the wide
+    # gather's backward
+    assert k3 == 3 and k1 == (9 if mode == "range" else 6)
     assert k2 == (0 if mode == "range" else 3)
     np.testing.assert_allclose([float(x) for x in gpu.losses],
                                [float(x) for x in cpu.losses], rtol=1e-4)
@@ -518,9 +526,11 @@ def test_cuda_evaluate_matches_cpu(cuda_device, tmp_path, monkeypatch):
     monkeypatch.setattr(tsparse, "SPARSE_MIN_ROWS", 1)
     over = dict(batch_size=64, pack_budget=3, train_data=TRAIN1)
     cpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
-                  device="cpu", dtype=torch.float32)
+                  model_dir=str(tmp_path / "cpu"), device="cpu",
+                  dtype=torch.float32)
     gpu = Trainer(Config(conf_dir), "wide_deep", overrides=over,
-                  device="cuda", dtype=torch.float32)
+                  model_dir=str(tmp_path / "gpu"), device="cuda",
+                  dtype=torch.float32)
     cpu.ensure_initialized()
     gpu.params = {k: _to(v, cuda_device) for k, v in cpu.params.items()}
     gpu.mstate = {k: _to(v, cuda_device) for k, v in cpu.mstate.items()}
@@ -560,6 +570,7 @@ def test_cuda_to_device_one_copy_bit_for_bit(cuda_device, tmp_path):
     with open(os.path.join(conf_dir, "model.yaml"), "a") as f:
         f.write("\nwide_fold_max_rows: 20000\n")
     tr = Trainer(Config(conf_dir), "wide_deep", device="cuda",
+                 model_dir=str(tmp_path / "m"),
                  overrides=dict(batch_size=512, pack_budget=3))
     batch = synthetic_batch(tr.plan, 512, np.random.default_rng(0))
     batch["wscat_ok_d4"] = np.ones(1, np.int32)
@@ -577,6 +588,138 @@ def test_cuda_to_device_one_copy_bit_for_bit(cuda_device, tmp_path):
                 out.buffer.untyped_storage().data_ptr()
         np.testing.assert_array_equal(t.cpu().numpy().view(np.uint8),
                                       v.view(np.uint8), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_gather_backward_is_deterministic(cuda_device):
+    """The wide arm's gather (models/linear.GatherRows): its backward on the
+    card runs K1 once over the stably sorted ids and gives the same bits on
+    every call for ids repeated thousands of times, within 1e-6 of each
+    row's sum of magnitudes of the float64 sum."""
+    from wide_deep_tpu_torch.models.linear import GatherRows
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy((rng.zipf(1.3, 102400) % 5000).astype(np.int32))
+    ct = torch.from_numpy(rng.normal(size=(ids.shape[0], 1)).astype(
+        np.float32))
+    grads = []
+    before = (tsc.range_launches, tsc.range_launches_by_width.get(1, 0))
+    for _ in range(3):
+        w = torch.zeros((5000, 1), device=cuda_device, requires_grad=True)
+        GatherRows.apply(w, ids.to(cuda_device)).backward(ct.to(cuda_device))
+        grads.append(w.grad.cpu())
+    assert (tsc.range_launches - before[0],
+            tsc.range_launches_by_width[1] - before[1]) == (3, 3)
+    assert all(torch.equal(_bits(grads[0]), _bits(g)) for g in grads[1:])
+    ref = np.zeros((5000, 1))
+    mag = np.zeros((5000, 1))
+    np.add.at(ref, ids.numpy(), ct.numpy().astype(np.float64))
+    np.add.at(mag, ids.numpy(), np.abs(ct.numpy().astype(np.float64)))
+    assert np.all(np.abs(grads[0].numpy() - ref) <= 1e-6 * mag + 1e-7)
+
+
+def _small_trainer(tmp_path, monkeypatch, model_dir, data, dropout=0.5):
+    """A small-config Trainer on the card with d4 folded under a range
+    plan and d8 under the fused sparse optimizer (K1, K3 each step), and
+    dropout on: its masks come from the Trainer's CUDA generator."""
+    import os
+
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.plan import FeaturePlan
+    from wide_deep_tpu_torch.optim import sparse as tsparse
+    from wide_deep_tpu_torch.testing import write_small_conf
+    from wide_deep_tpu_torch.training.loop import Trainer
+    conf_dir = str(tmp_path / "conf")
+    if not os.path.isdir(conf_dir):
+        write_small_conf(conf_dir)
+        path = os.path.join(conf_dir, "model.yaml")
+        with open(path) as f:
+            text = f.read().replace("dnn_dropout:",
+                                    f"dnn_dropout: {dropout}")
+        with open(path, "w") as f:
+            f.write(text + "\nwide_fold_max_rows: 20000\n")
+    monkeypatch.setattr(tsparse, "SPARSE_MIN_ROWS", 1)
+    monkeypatch.setattr(FeaturePlan, "scatter_group",
+                        lambda self, g, b: g.folded)
+    monkeypatch.setattr(FeaturePlan, "window_group", lambda self, g, b: False)
+    return Trainer(Config(conf_dir), "wide_deep", device="cuda",
+                   model_dir=str(tmp_path / model_dir),
+                   overrides=dict(batch_size=16, pack_budget=3,
+                                  train_data=data, keep_train=True))
+
+
+def _assert_same_state(a, b):
+    """params, BN state and optimizer state bit for bit, counts and the
+    step equal."""
+    from wide_deep_tpu_torch.optim import tree_items
+    for what in ("params", "mstate", "opt_state"):
+        la = dict(tree_items(getattr(a, what)))
+        lb = dict(tree_items(getattr(b, what)))
+        assert sorted(map(str, la)) == sorted(map(str, lb)), what
+        for path, va in la.items():
+            vb = lb[path]
+            if isinstance(va, torch.Tensor):
+                assert va.dtype == vb.dtype and va.device == vb.device
+                assert torch.equal(va.detach().reshape(-1).view(torch.uint8),
+                                   vb.detach().reshape(-1).view(torch.uint8)
+                                   ), (what, path)
+            else:
+                assert va == vb, (what, path)
+    assert a.global_step == b.global_step
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path, monkeypatch):
+    """Two steps on the card, save; a new Trainer on the card restores
+    every leaf bit for bit, the counts, the step and the CUDA generator's
+    state; the fused d8 table is 16 of its 128 columns on disk and its
+    padding is zero after restore."""
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.training.checkpoint import inspect_checkpoint
+    a = _small_trainer(tmp_path, monkeypatch, "m", TRAIN1)
+    a.train_file(TRAIN1, max_steps=2)
+    a.save()
+    assert inspect_checkpoint(a.model_dir)["params/dnn/embed/d8"].shape \
+        == (123136, 16)
+    b = _small_trainer(tmp_path, monkeypatch, "m", TRAIN1)
+    b.ensure_initialized()
+    torch.cuda.synchronize()
+    _assert_same_state(a, b)
+    assert torch.equal(a._gen.get_state(), b._gen.get_state())
+    live = b.params["dnn"]["embed"]["d8"]
+    assert live.device.type == "cuda" and live.shape[1] == 128
+    assert not live[:, 16:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_resume_is_bit_exact(cuda_device, tmp_path, monkeypatch):
+    """On the card: 2 steps, save, a new Trainer restores, 1 more step ==
+    3 steps in one Trainer, losses and state bit for bit (dropout on), and
+    every step launched K1 three times (d4 fold, d8 compact, the wide
+    gather's backward) and K3 once."""
+    from paths import TRAIN1
+    whole = _small_trainer(tmp_path, monkeypatch, "whole", TRAIN1)
+    batches = []
+    for b in whole._dataset(TRAIN1, "train"):
+        batches.append(b)
+        if len(batches) == 3:
+            break
+    before = (tsc.range_launches, trowdma.rowdma_launches)
+    for b in batches:
+        whole.train_batch(b)
+    first = _small_trainer(tmp_path, monkeypatch, "resumed", TRAIN1)
+    for b in batches[:2]:
+        first.train_batch(b)
+    first.save()
+    second = _small_trainer(tmp_path, monkeypatch, "resumed", TRAIN1)
+    second.ensure_initialized()
+    assert second.global_step == 2
+    second.train_batch(batches[2])
+    torch.cuda.synchronize()
+    assert (tsc.range_launches - before[0],
+            trowdma.rowdma_launches - before[1]) == (3 * 6, 6)
+    assert float(list(second.losses)[-1]) == float(list(whole.losses)[-1])
+    _assert_same_state(whole, second)
+    assert torch.equal(whole._gen.get_state(), second._gen.get_state())
 
 
 def _to(tree, device):

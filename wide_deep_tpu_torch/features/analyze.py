@@ -1,5 +1,6 @@
-"""Dataset statistics feeding FeaturePlan decisions (the port's copy of the
-JAX package's ``features/analyze.py``, without plan-meta persistence).
+"""Dataset statistics feeding FeaturePlan decisions, and the record of the
+plan decisions a model trained with (the port's copy of the JAX package's
+``features/analyze.py``).
 
 Device step cost is linear in the packed id-pool widths, and pool width is
 pack_budget x the number of multivalue slots.  ``pack_budget: auto`` in
@@ -8,7 +9,9 @@ train.yaml scans the training data and uses the 95th-percentile value count.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Optional
 
 import numpy as np
@@ -88,3 +91,27 @@ def resolve_pack_budget(config, train_data: Optional[str] = None,
         return DEFAULT_BUDGET
     log.info("pack_budget: auto -> %d (p95 occupancy of %s)", budget, path)
     return budget
+
+
+# ------------------------------------------------- train-time persistence
+PLAN_META_FILE = "plan_meta.json"
+
+
+def save_plan_meta(model_dir: str, plan) -> None:
+    """Record the plan decisions resolved at training time (pack_budget,
+    fold, multivalue) next to the checkpoints, so export re-uses the values
+    the model trained with instead of re-deriving them from whatever data is
+    visible at export time (train/serve feature-skew guard)."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, PLAN_META_FILE), "w") as f:
+        json.dump({"pack_budget": plan.pack_budget, "fold": plan.fold,
+                   "multivalue": plan.multivalue}, f)
+
+
+def load_plan_meta(model_dir: str):
+    """-> dict, or None where the model dir has no record."""
+    path = os.path.join(model_dir, PLAN_META_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

@@ -34,13 +34,18 @@ log = logging.getLogger("wide_deep_tpu_torch")
 
 
 def list_files(path: str) -> List[str]:
-    """File path -> [path]; directory -> its sorted non-hidden files."""
-    if os.path.isdir(path):
+    """File path -> [path]; directory -> its sorted non-hidden files.
+    Remote schemes (hdfs:// and registered ones) resolve through
+    features/fs.py; local paths stay on os."""
+    from wide_deep_tpu_torch.features import fs
+    if fs.scheme_of(path) is None and not os.path.exists(path):
+        raise FileNotFoundError(f"no data at {path}")
+    if fs.isdir(path):
+        # one remote call for the file/dir bit of every entry
         return sorted(
-            os.path.join(path, f) for f in os.listdir(path)
-            if not f.startswith(".")
-            and os.path.isfile(os.path.join(path, f)))
-    if os.path.isfile(path):
+            p for p, is_file in fs.listdir_entries(path)
+            if not os.path.basename(p).startswith(".") and is_file)
+    if fs.isfile(path):
         return [path]
     raise FileNotFoundError(f"no data at {path}")
 
@@ -360,10 +365,12 @@ class CsvDataset:
     def _raw_lines_indexed(self) -> Iterator[Tuple[int, str]]:
         """(row index, line) of the files' non-empty lines, round-robin
         sharded; the index counts lines across the file list before
-        sharding.  Files decode as UTF-8 whatever the locale."""
+        sharding.  Files decode as UTF-8 whatever the locale (features/fs.py
+        opens them)."""
+        from wide_deep_tpu_torch.features import fs
         idx = 0
         for path in self.files:
-            with open(path, encoding="utf-8", errors="replace") as f:
+            with fs.open_text(path, errors="replace") as f:
                 for line in f:
                     line = line.rstrip("\n").rstrip("\r")
                     if not line:
@@ -395,8 +402,11 @@ class CsvDataset:
     def _fast_path_ok(self) -> bool:
         if not self._native:
             return False
-        return sum(os.path.getsize(p) for p in self.files) \
-            <= self.FAST_SLURP_MAX_BYTES
+        try:
+            total = sum(os.path.getsize(p) for p in self.files)
+        except OSError:
+            return False  # remote filesystems: stream
+        return total <= self.FAST_SLURP_MAX_BYTES
 
     def _iter_native_fast(self) -> Iterator[Tuple[Batch, np.ndarray]]:
         """Vectorized batch emission for the native parser: the files are
@@ -409,12 +419,13 @@ class CsvDataset:
         order (both are valid shuffles), and invalid UTF-8 reaches the
         byte-oriented C++ parser raw where streaming replaces it with
         U+FFFD."""
+        from wide_deep_tpu_torch.features import fs
         blobs: List[bytes] = []
         fids: List[np.ndarray] = []
         sts: List[np.ndarray] = []
         ens: List[np.ndarray] = []
         for path in self.files:
-            with open(path, "rb") as f:
+            with fs.open_bytes(path) as f:
                 data = f.read()
             if not data:
                 continue

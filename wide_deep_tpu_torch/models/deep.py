@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -38,6 +39,32 @@ BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Summary sink: while a dict is installed here (``summary_scope``),
+# tower_forward records each hidden layer's activation stats into it (the
+# reference's add_layer_summary, model_util.py:15-17).  Thread-local, so a
+# forward in another thread (an eval beside training) records nothing.
+_SINK_TLS = threading.local()
+
+
+def _current_sink() -> Optional[Dict[str, Any]]:
+    return getattr(_SINK_TLS, "sink", None)
+
+
+class summary_scope:
+    """Context manager installing a summary sink for this thread."""
+
+    def __init__(self, sink: Dict[str, Any]):
+        self.sink = sink
+
+    def __enter__(self):
+        self._prev = _current_sink()
+        _SINK_TLS.sink = self.sink
+        return self.sink
+
+    def __exit__(self, *exc):
+        _SINK_TLS.sink = self._prev
+        return False
 
 
 def set_parity_precision() -> None:
@@ -453,6 +480,15 @@ def tower_forward(store: ParamStore, spec: DeepSpec, tower_idx: int,
             sources = [collections[i] for i in conn.get(layer_id + 1, [])]
             net = torch.cat(sources + [h], dim=1) if sources else h
             collections.append(net)
+        sink = _current_sink()
+        if sink is not None:
+            # over the whole batch, padding rows included, as in the JAX
+            # package
+            scope = f"dnn_{tower_idx}/hiddenlayer_{layer_id}"
+            netf = net.detach().float()
+            sink[f"{scope}/zero_fraction"] = (netf == 0).float().mean()
+            sink[f"{scope}/activation_mean"] = netf.mean()
+            sink[f"{scope}/activation_std"] = netf.std(correction=0)
     if isinstance(mode, str) and mode == "last_dense":
         net = torch.cat(collections, dim=1)
     return _dense(store, ("towers", tower_idx, "logits"), net, n_logits,

@@ -20,7 +20,8 @@ from wide_deep_tpu_torch.models.deep import (DTYPES, DeepSpec, ParamStore,
                                              PlanConstants, deep_logits,
                                              indicator_block,
                                              init_deep_params, l2_l1_penalty,
-                                             set_parity_precision)
+                                             set_parity_precision,
+                                             summary_scope)
 from wide_deep_tpu_torch.models.linear import init_linear_params, linear_logits
 
 MODEL_TYPES = ("wide", "deep", "wide_deep")
@@ -124,16 +125,23 @@ class WideDeep:
     def loss_fn(self, params: Dict, state: Dict,
                 batch: Dict[str, torch.Tensor], training: bool,
                 rng: Optional[torch.Generator] = None,
-                sinks: Optional[Dict[str, torch.Tensor]] = None):
-        """-> (loss, (new_state, per-example loss, predictions))."""
-        logits, new_state = self.apply(params, state, batch, training, rng,
-                                       sinks)
+                sinks: Optional[Dict[str, torch.Tensor]] = None,
+                collect_summaries: bool = False):
+        """-> (loss, (new_state, per-example loss, predictions)), plus the
+        per-layer summary stats (models/deep.summary_scope) as a fourth
+        aux entry when ``collect_summaries``."""
+        stats: Dict[str, torch.Tensor] = {}
+        with summary_scope(stats if collect_summaries else None):
+            logits, new_state = self.apply(params, state, batch, training,
+                                           rng, sinks)
         weights = batch["weight"] * batch["mask"]
         loss, per_ex = heads.head_loss(logits, batch["label"], weights,
                                        self.n_classes)
         if self.has_deep and (self.deep_spec.l1 or self.deep_spec.l2):
             loss = loss + l2_l1_penalty(params["dnn"], self.deep_spec)
         preds = heads.head_predictions(logits, self.n_classes)
+        if collect_summaries:
+            return loss, (new_state, per_ex, preds, stats)
         return loss, (new_state, per_ex, preds)
 
     def predict(self, params: Dict, state: Dict,

@@ -5,8 +5,9 @@ The plan packs every pooled wide column into one id space, so the arm is a
 single [wide_dim, n_logits] table: logit = sum_j w[id_j] * wt_j + b, plus the
 vocab/identity columns as the multi-hot indicator block times the table's
 rows for them.  Weights start at zero, which FTRL's sparsity relies on.  The
-gather's backward is ``index_add_`` (``index_select``'s gradient): no TPU
-kernel stands behind it.
+pooled gather's backward (``GatherRows``) sums the rows of repeated ids in
+the same order on every call; on the card it runs K1, where the JAX
+package's gradient is XLA's scatter-add.
 """
 
 from __future__ import annotations
@@ -36,6 +37,40 @@ def init_linear_params(plan: FeaturePlan, n_logits: int, device,
     return params
 
 
+class GatherRows(torch.autograd.Function):
+    """``table.index_select(0, ids)`` whose backward gives the same bits on
+    every call.  On the card ``index_select``'s own backward
+    (``index_add_``) adds the rows of a repeated id with float32 atomics in
+    whatever order the threads arrive, so FTRL's n and z of the wide table
+    took other low bits from run to run; ``index_put_`` with
+    ``accumulate`` is deterministic but gives each id to one warp (1.15 ms
+    of a production step on an H100, with hot ids).  So the card sorts the
+    ids stably and sums each id's rows with K1
+    (ops/scatter.sorted_stream_sum), in float32 and in stream order.  On the CPU the backward is ``index_add_``, which
+    adds them in stream order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = (table.shape, table.dtype)
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ids,) = ctx.saved_tensors
+        shape, dtype = ctx.shape
+        if ct.is_cuda:
+            from wide_deep_tpu_torch.ops.scatter import sorted_stream_sum
+            perm = torch.argsort(ids, stable=True)
+            grad = sorted_stream_sum(
+                ids[perm].int().contiguous(), perm.int().contiguous(),
+                ct.float().contiguous(), shape[0], torch.float32)
+            return grad.to(dtype), None
+        grad = torch.zeros(shape, dtype=dtype, device=ct.device)
+        grad.index_add_(0, ids, ct.to(dtype))
+        return grad, None
+
+
 def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                   consts=None) -> torch.Tensor:
     """[B, n_logits] wide logits: the pooled gather (hash/cross/bucketized
@@ -43,7 +78,7 @@ def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     w = params["w"]
     ids = batch["wide_ids"]
     B, L = ids.shape
-    gathered = w.index_select(0, ids.reshape(-1)).reshape(B, L, -1)
+    gathered = GatherRows.apply(w, ids.reshape(-1)).reshape(B, L, -1)
     out = torch.einsum("bln,bl->bn", gathered, batch["wide_wts"])
     if consts is not None and consts.indicator_dim:
         from wide_deep_tpu_torch.models.deep import indicator_block

@@ -1,9 +1,13 @@
-"""Optimizers: FTRL and Adagrad per arm, each with exponential LR decay
-(port of wide_deep_tpu/optim/__init__.py; the other optimizers wait).
+"""Optimizers: FTRL, Adagrad and ProximalAdagrad per arm, each with
+exponential LR decay (port of wide_deep_tpu/optim/__init__.py; the other
+optimizers wait).
 
 Semantics follow the JAX package exactly, not ``torch.optim``:
 
 * FTRL-Proximal, TF ApplyFtrl form (optim/__init__.py:52-95 there).
+* ProximalAdagrad, TF ApplyProximalAdagrad form (:104-142 there): the
+  accumulator starts at 0.1 rounded to the param's dtype and is kept in
+  float32, as the JAX package's is after its first update.
 * Adagrad as optax.adagrad: accumulator initialised to 0.1 in the param's
   own dtype (bfloat16 for bfloat16 tables), ``n += g^2``,
   ``w += (-lr) * g * rsqrt(n + 1e-7)``, every step in the param's dtype.
@@ -21,7 +25,7 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 import torch
 
 Schedule = Callable[[int], torch.Tensor]
-SUPPORTED = ("Ftrl", "Adagrad")
+SUPPORTED = ("Ftrl", "Adagrad", "ProximalAdagrad")
 
 
 def exponential_decay(lr0: float, decay_rate: float,
@@ -53,6 +57,16 @@ def tree_get(tree, path):
     return tree
 
 
+def tree_set(tree, path, value):
+    """A copy of ``tree`` with the leaf at ``path`` replaced: the dicts and
+    lists along the path are copied, every other node is shared."""
+    if not path:
+        return value
+    out = dict(tree) if isinstance(tree, dict) else list(tree)
+    out[path[0]] = tree_set(tree[path[0]], path[1:], value)
+    return out
+
+
 def _ftrl_(spec, lr, w, g, n, z):
     """One FTRL step in place on (w, n, z)."""
     l1 = spec.get("l1_regularization_strength", 0.0)
@@ -66,6 +80,19 @@ def _ftrl_(spec, lr, w, g, n, z):
     w.add_((w_new - w).to(w.dtype))
     n.copy_(n2)
     z.copy_(z2)
+
+
+def _proximal_adagrad_(spec, lr, w, g, n):
+    """One ProximalAdagrad step in place on (w, n)."""
+    l1 = spec.get("l1_regularization_strength", 0.0)
+    l2 = spec.get("l2_regularization_strength", 0.0)
+    g = g.float()
+    n.add_(g * g)
+    adj = lr * torch.rsqrt(n)
+    prox = w - adj * g
+    w_new = (torch.sign(prox) * torch.clamp(torch.abs(prox) - adj * l1,
+                                            min=0.0) / (1.0 + adj * l2))
+    w.add_((w_new - w).to(w.dtype))
 
 
 def _adagrad_(lr, w, g, s, eps: float = 1e-7):
@@ -108,8 +135,11 @@ class JointOptimizer:
         for arm, (spec, _) in self.arms.items():
             acc0 = spec.get("initial_accumulator_value", 0.1)
             leaves = self.leaves(params, arm)
+            accum_dtype = (torch.float32 if spec["name"] == "ProximalAdagrad"
+                           else None)
             st = {"count": 0,
-                  "accum": {p: torch.full_like(t, acc0).detach()
+                  "accum": {p: torch.full_like(t, acc0).detach().to(
+                                accum_dtype or t.dtype)
                             for p, t in leaves}}
             if spec["name"] == "Ftrl":
                 st["linear"] = {p: torch.zeros_like(t).detach()
@@ -130,6 +160,8 @@ class JointOptimizer:
                 if spec["name"] == "Ftrl":
                     _ftrl_(spec, lr, w, g, st["accum"][path],
                            st["linear"][path])
+                elif spec["name"] == "ProximalAdagrad":
+                    _proximal_adagrad_(spec, lr, w, g, st["accum"][path])
                 else:
                     _adagrad_(lr, w, g, st["accum"][path])
             st["count"] += 1

@@ -1,6 +1,8 @@
-"""The port's microbenchmark tools, run as
-``python -m wide_deep_tpu_torch.tools.<name>``:
+"""The port's tools, run as ``python -m wide_deep_tpu_torch.tools.<name>``:
 
+* ``train``, ``eval``, ``pred``: the training, evaluation and prediction
+  CLIs (counterparts of tools/{train,eval,pred}.py; shared plumbing in
+  ``common``), ``inspect_checkpoint``: a checkpoint's leaves;
 * ``microbench_vmem_gather``: P1, the row gather from a resident pool
   (counterpart of tools/microbench_vmem_gather.py);
 * ``microbench_rowdma_scatter``: P2, the bulk row scatter (counterpart of
@@ -9,8 +11,8 @@
   path (counterpart of bench.py).
 
 Each runs on the card unless it is given ``--device cpu``, where the kernel
-wrappers take their plain versions.  Shared here: the argument parser, the
-devices line and the timer.
+wrappers take their plain versions.  Shared here by the microbenchmarks and
+the bench: the argument parser, the devices line and the timer.
 """
 
 from __future__ import annotations

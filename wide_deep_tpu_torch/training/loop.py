@@ -1,16 +1,31 @@
-"""Trainer: the single-device training loop (a slim port of
-wide_deep_tpu/training/loop.py: construction, initialisation, ``train_file``
-behind the device prefetch, ``evaluate`` and ``predict``; checkpoints and
-the multi-device paths are not ported yet).
+"""Trainer: the single-device training loop (the port of
+wide_deep_tpu/training/loop.py without the multi-device, stream and CNN
+paths), after the reference's entry-point loops (python/train.py:65-170,
+eval.py:56-83, pred.py:52-74):
+
+* ``train_and_eval``: per epoch, per train file: train, then evaluate the
+  eval data; the test data every ``epochs_per_eval`` epochs;
+* ``dynamic_train``: rolling window, train on file[i], test on file[i+1];
+* ``train``, ``evaluate`` and ``predict`` one-shots.
+
+``train_file`` runs the loader and the host-to-device copy in threads
+ahead of the step, checkpoints at the runconfig's cadence
+(training/checkpoint.py), writes TensorBoard summaries every
+``save_summary_steps`` steps and logs steps/s every
+``log_step_count_steps``.  keep_train=0 wipes the model dir first
+(``maybe_wipe_model_dir``); otherwise a Trainer resumes from the latest
+checkpoint.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import logging
 import os
+import shutil
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,12 +35,14 @@ from wide_deep_tpu_torch.config import Config
 from wide_deep_tpu_torch.features.pipeline import (CsvDataset,
                                                    DevicePrefetchIterator,
                                                    PrefetchIterator,
-                                                   default_transformer)
+                                                   default_transformer,
+                                                   list_files)
 from wide_deep_tpu_torch.features.plan import FeaturePlan, fold_enabled
 from wide_deep_tpu_torch.models.joint import (WideDeep, build_model,
                                               resolve_device)
-from wide_deep_tpu_torch.optim import build_joint_optimizer
+from wide_deep_tpu_torch.optim import build_joint_optimizer, tree_items
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
+from wide_deep_tpu_torch.training.checkpoint import CheckpointManager
 from wide_deep_tpu_torch.training.step import (eval_step, init_opt_state,
                                                predict_step, train_step)
 
@@ -34,6 +51,20 @@ log = logging.getLogger("wide_deep_tpu_torch")
 # every key of a packed transfer starts on this boundary: the kernels read
 # ids, perm and tiles with wide loads
 PACK_ALIGN = 256
+# Trainer.losses keeps the losses of this many most recent steps
+LOSS_HISTORY = 1000
+
+
+def resolve_checkpoint(checkpoint_path: str):
+    """Split an explicit checkpoint path into (manager_dir, step).  Steps
+    lie in ``<model_dir>/<step>/``, so a path whose basename is an integer
+    pins that step; a path to the model dir itself means the latest (step
+    None)."""
+    p = os.path.abspath(checkpoint_path.rstrip("/"))
+    base = os.path.basename(p)
+    if base.isdigit():
+        return os.path.dirname(p), int(base)
+    return p, None
 
 
 def build_training_plan(config: Config, train_conf: Dict[str, Any],
@@ -155,6 +186,10 @@ class Trainer:
             sparse_paths=sparse_paths)
         self.pos_weight = self.train_conf.get("pos_sample_loss_weight")
         self.neg_weight = self.train_conf.get("neg_sample_loss_weight")
+        # step-cadenced eval (train.yaml eval_every_n_steps; 0 = off): a
+        # full eval pass inline every N train steps
+        self.eval_every_n_steps = int(
+            self.train_conf.get("eval_every_n_steps") or 0)
         self.transformer = default_transformer(
             self.plan, n_classes, self.pos_weight, self.neg_weight,
             num_parallel_calls=self.train_conf.get("num_parallel_calls"))
@@ -162,16 +197,26 @@ class Trainer:
         self.mstate = None
         self.opt_state = None
         self.global_step = 0
-        self.losses: List[torch.Tensor] = []   # per-step loss, on device
+        # the losses of the most recent steps, on the device
+        self.losses: collections.deque = collections.deque(
+            maxlen=LOSS_HISTORY)
+        # the per-layer stats of the last step that computed them
+        self.summary_stats: Dict[str, torch.Tensor] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.seed)
         self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._ckpt: Optional[CheckpointManager] = None
+        self._summary_writer = None
 
-    def ensure_initialized(self):
-        """Draw params and BN state from the seed unless they were set (the
-        tests set the JAX package's through interop.from_jax), then the
-        optimizer state."""
-        if self.params is None:
+    def ensure_initialized(self, restore: bool = True):
+        """Once: draw params and BN state from the seed unless they were
+        set (the tests set the JAX package's through interop.from_jax), the
+        optimizer state, the checkpoint manager and the plan record; then,
+        with ``restore`` and freshly drawn params, the latest checkpoint."""
+        if self._ckpt is not None:
+            return
+        fresh = self.params is None
+        if fresh:
             spec = self.plan.batch_spec(1, self.n_classes)
             sample = {k: torch.zeros(shape, dtype=getattr(torch, dt.__name__),
                                      device=self.device)
@@ -183,6 +228,51 @@ class Trainer:
         if self.opt_state is None:
             self.opt_state = init_opt_state(self.tx, self.params,
                                             self.sparse_tables)
+        self._ckpt = CheckpointManager(self.model_dir, self.runconfig)
+        # the plan decisions the params train with (auto pack_budget,
+        # fold), for export.  Written once: eval and predict pass here too,
+        # and their plan may differ from the one the checkpointed params
+        # were trained with; a wiped (keep_train=0) dir gets a new record
+        from wide_deep_tpu_torch.features.analyze import (load_plan_meta,
+                                                          save_plan_meta)
+        if load_plan_meta(self.model_dir) is None:
+            save_plan_meta(self.model_dir, self.plan)
+        if restore and fresh:
+            restored = self._restore_tree(self._ckpt)
+            if restored is not None:
+                log.info("restored checkpoint at step %d", self.global_step)
+
+    def _ckpt_tree(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the params with each fused table as a
+        view of its live columns (optim/sparse.compact_fused_ckpt), the BN
+        state, the optimizer state, the step and the dropout generator's
+        state (its draws depend on it, so a resume draws what an
+        uninterrupted run would)."""
+        return {"params": sparse_lib.compact_fused_ckpt(self.params,
+                                                        self.sparse_tables),
+                "mstate": self.mstate, "opt_state": self.opt_state,
+                "step": self.global_step, "rng": self._gen.get_state()}
+
+    def _restore_tree(self, mgr: CheckpointManager,
+                      step: Optional[int] = None):
+        """Restore ``step`` (default: the latest) into the live state in
+        place; the fused tables' padding columns are zeroed
+        (optim/sparse.expand_fused_ckpt).  -> the restored tree, or None
+        when there is no checkpoint."""
+        restored = mgr.restore(self._ckpt_tree(), step=step)
+        if restored is None:
+            return None
+        self.params = sparse_lib.expand_fused_ckpt(
+            restored["params"], self.sparse_tables, self.params)
+        self.mstate = restored["mstate"]
+        self.opt_state = restored["opt_state"]
+        self.global_step = int(restored["step"])
+        self._gen.set_state(restored["rng"])
+        return restored
+
+    def maybe_wipe_model_dir(self):
+        if not self.train_conf["keep_train"] and os.path.isdir(self.model_dir):
+            shutil.rmtree(self.model_dir)
 
     # ------------------------------------------------------------- transfer
     def _to_device(self, batch: Dict[str, np.ndarray]
@@ -220,13 +310,19 @@ class Trainer:
         return batch
 
     # ---------------------------------------------------------------- train
-    def train_batch(self, batch) -> torch.Tensor:
+    def train_batch(self, batch, with_summaries: bool = False) -> torch.Tensor:
         """One step on a host batch (numpy arrays) or on one already on the
-        device (``_to_device``'s); returns the loss (on device)."""
+        device (``_to_device``'s); returns the loss (on device).
+        ``with_summaries`` also computes the per-layer activation stats
+        into ``summary_stats``."""
         self.ensure_initialized()
-        self.mstate, loss = train_step(
+        out = train_step(
             self.model, self.tx, self.params, self.mstate, self.opt_state,
-            self._device_batch(batch), self.sparse_tables, rng=self._gen)
+            self._device_batch(batch), self.sparse_tables, rng=self._gen,
+            with_summaries=with_summaries)
+        self.mstate, loss = out[0], out[1]
+        if with_summaries:
+            self.summary_stats = out[2]
         self.global_step += 1
         self.losses.append(loss)
         return loss
@@ -244,29 +340,112 @@ class Trainer:
                    max_steps: Optional[int] = None) -> float:
         """Train over one file (at most ``max_steps`` batches); returns the
         last batch loss.  Parse, host-to-device copy and step overlap: the
-        loader and the copy each run in a thread of their own."""
+        loader and the copy each run in a thread of their own.  Summaries,
+        step logs, checkpoints and cadenced evals at the configured steps;
+        only the log and summary steps read the loss on the host."""
         self.ensure_initialized()
+        log_every = int(self.runconfig.get("log_step_count_steps") or 100)
+        summary_every = int(self.runconfig.get("save_summary_steps") or 0)
         t0 = time.time()
+        last_log_step, last_log_time = self.global_step, t0
         loss = None
         batches = iter(self._dataset(path, "train", epoch_seed))
         if max_steps is not None:
             batches = itertools.islice(batches, max_steps)
         for batch in DevicePrefetchIterator(PrefetchIterator(batches),
                                             self._to_device):
-            loss = self.train_batch(batch)
+            summarize = bool(summary_every) and (
+                (self.global_step + 1) % summary_every == 0)
+            if summarize:
+                loss = self.train_batch(batch, with_summaries=True)
+                self._write_summaries(float(loss), self.summary_stats)
+            else:
+                loss = self.train_batch(batch)
+            if self.global_step % log_every == 0:
+                now = time.time()
+                sps = (self.global_step - last_log_step) / max(
+                    now - last_log_time, 1e-9)
+                log.info("step %d  loss %.5f  %.1f steps/s  %.0f ex/s",
+                         self.global_step, float(loss), sps,
+                         sps * self.batch_size)
+                last_log_step, last_log_time = self.global_step, now
+            if self._ckpt.should_save(self.global_step):
+                self._ckpt.save(self.global_step, self._ckpt_tree())
+            if (self.eval_every_n_steps
+                    and self.global_step % self.eval_every_n_steps == 0):
+                res = self.evaluate(self.train_conf["eval_data"])
+                log.info("step %d cadenced eval: %s", self.global_step,
+                         _fmt(res))
+                self._write_eval_summaries(res)
         log.info("finished %s in %.1f s (step %d)", os.path.basename(path),
                  time.time() - t0, self.global_step)
         return float("nan") if loss is None else float(loss)
+
+    def save(self, force: bool = True):
+        """Checkpoint the current step; durable on return."""
+        self.ensure_initialized()
+        self._ckpt.save(self.global_step, self._ckpt_tree(), force=force)
+        self._ckpt.wait()
+
+    def _writer(self):
+        if self._summary_writer is None:
+            from wide_deep_tpu_torch.training.summary import SummaryWriter
+            self._summary_writer = SummaryWriter(
+                os.path.join(self.model_dir, "summaries"))
+        return self._summary_writer
+
+    def _write_summaries(self, loss: float, stats: Dict[str, torch.Tensor]):
+        """The loss and the per-layer stats as scalars, and the towers'
+        kernels and biases as histograms (host side), at the
+        save_summary_steps cadence (train.yaml:93, model_util.py:15-17)."""
+        w = self._writer()
+        names = sorted(stats)
+        values = (torch.stack([stats[k].float() for k in names]).tolist()
+                  if names else [])
+        scalars = {"loss": loss}
+        scalars.update(zip(names, values))
+        w.scalars(scalars, self.global_step)
+        for path, leaf in sorted(
+                (tuple(map(str, p)), t) for p, t in tree_items(self.params)):
+            if path[-1] in ("kernel", "b", "bias") and "towers" in path:
+                w.histogram("/".join(path),
+                            leaf.detach().float().cpu().numpy(),
+                            self.global_step)
+        w.flush()
+
+    def _write_eval_summaries(self, results: Dict[str, float]):
+        """Eval metrics under an eval/ tag prefix at the step-cadenced eval
+        points."""
+        w = self._writer()
+        w.scalars({f"eval/{k}": float(v) for k, v in results.items()
+                   if k != "global_step"}, self.global_step)
+        w.flush()
+
+    def _restore_pinned(self, checkpoint_path: str):
+        """Restore the exact checkpoint an explicit path names (the
+        reference's eval.py:74-78, pred.py:47-49); raises if it does not
+        exist."""
+        mgr_dir, step = resolve_checkpoint(checkpoint_path)
+        mgr = CheckpointManager(mgr_dir, self.runconfig)
+        steps = mgr.all_steps()
+        if step is None:
+            step = mgr.latest_step()
+        if step is None or step not in steps:
+            raise FileNotFoundError(
+                f"no checkpoint at {checkpoint_path!r} "
+                f"(available steps under {mgr_dir}: {steps})")
+        self._restore_tree(mgr, step=step)
 
     # ---------------------------------------------------------- eval, pred
     def evaluate(self, data_path: Optional[str] = None,
                  checkpoint_path: Optional[str] = None) -> Dict[str, float]:
         """The metric set (metrics.py) over ``data_path`` (default: the
         train conf's ``test_data``) with the current params, plus
-        ``global_step``."""
+        ``global_step``; from the checkpoint ``checkpoint_path`` names
+        (``resolve_checkpoint``) where one is given."""
+        self.ensure_initialized(restore=not checkpoint_path)
         if checkpoint_path:
-            raise NotImplementedError("checkpoints are not ported yet")
-        self.ensure_initialized()
+            self._restore_pinned(checkpoint_path)
         data_path = data_path or self.train_conf["test_data"]
         acc = metrics_lib.init_metrics(device=self.device)
         for batch in PrefetchIterator(self._dataset(data_path, "eval")):
@@ -281,10 +460,11 @@ class Trainer:
                 checkpoint_path: Optional[str] = None
                 ) -> Iterator[Dict[str, Any]]:
         """Per-example predictions over ``data_path`` (default:
-        ``test_data``), streamed: one dict of numpy values per real row."""
+        ``test_data``), streamed: one dict of numpy values per real row;
+        from the checkpoint ``checkpoint_path`` names where one is given."""
+        self.ensure_initialized(restore=not checkpoint_path)
         if checkpoint_path:
-            raise NotImplementedError("checkpoints are not ported yet")
-        self.ensure_initialized()
+            self._restore_pinned(checkpoint_path)
         data_path = data_path or self.train_conf["test_data"]
         for batch in PrefetchIterator(self._dataset(data_path, "pred")):
             preds = predict_step(self.model, self.params, self.mstate,
@@ -292,3 +472,54 @@ class Trainer:
             preds = {k: v.cpu().numpy() for k, v in preds.items()}
             for i in range(int(batch["mask"].sum())):
                 yield {k: v[i] for k, v in preds.items()}
+
+    # ------------------------------------------------------------ loop modes
+    def train_and_eval(self):
+        """The reference's train.py:65-106: per epoch, each train file then
+        an eval pass over the eval data; the test data every
+        ``epochs_per_eval`` epochs; a forced save at the end of each
+        epoch."""
+        conf = self.train_conf
+        for epoch in range(int(conf["train_epochs"])):
+            for path in list_files(conf["train_data"]):
+                self.train_file(path, epoch_seed=epoch)
+                res = self.evaluate(conf["eval_data"])
+                log.info("epoch %d eval %s: %s", epoch,
+                         os.path.basename(path), _fmt(res))
+            if (epoch + 1) % int(conf["epochs_per_eval"]) == 0:
+                res = self.evaluate(conf["test_data"])
+                log.info("epoch %d test: %s", epoch, _fmt(res))
+            self.save()
+
+    def dynamic_train(self):
+        """Rolling-window mode (train.py:109-148): train file[i], test
+        file[i+1], files sorted by name."""
+        conf = self.train_conf
+        files = sorted(list_files(conf["train_data"]))
+        for epoch in range(int(conf["train_epochs"])):
+            for i, path in enumerate(files):
+                self.train_file(path, epoch_seed=epoch)
+                if i + 1 < len(files):
+                    res = self.evaluate(files[i + 1])
+                    log.info("dynamic eval on %s: %s",
+                             os.path.basename(files[i + 1]), _fmt(res))
+            self.save()
+
+    def train_and_evaluate(self):
+        """The reference's train_and_eval_api mode by name
+        (train.py:151-170); the same interleaved loop as
+        ``train_and_eval``."""
+        return self.train_and_eval()
+
+    def train(self):
+        """Plain training, no interleaved eval (the distributed mode's
+        default, train.py:213-214)."""
+        conf = self.train_conf
+        for epoch in range(int(conf["train_epochs"])):
+            for path in list_files(conf["train_data"]):
+                self.train_file(path, epoch_seed=epoch)
+            self.save()
+
+
+def _fmt(res: Dict[str, float]) -> str:
+    return "  ".join(f"{k}={v:.6g}" for k, v in sorted(res.items()))

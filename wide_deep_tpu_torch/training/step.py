@@ -32,9 +32,11 @@ def init_opt_state(tx: JointOptimizer, params,
 def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
                opt_state, batch: Dict[str, torch.Tensor],
                sparse_tables: Optional[Dict[str, Any]] = None,
-               rng: Optional[torch.Generator] = None):
-    """One training step -> (new BN state, loss); params and opt_state
-    change in place."""
+               rng: Optional[torch.Generator] = None,
+               with_summaries: bool = False):
+    """One training step -> (new BN state, loss), plus with
+    ``with_summaries`` the per-layer activation stats {tag: scalar tensor}
+    (zero fraction, mean, std); params and opt_state change in place."""
     sparse_tables = sparse_tables or {}
     sparse_paths = {t.path for t in sparse_tables.values()}
     leaves = [(p, t) for p, t in tree_items(params) if p not in sparse_paths]
@@ -45,9 +47,10 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
             raise ValueError(f"{t.name}: fused tables need the batch's "
                              f"compact plan (sopt_*_{t.path[-1]})")
     sinks: Dict[str, torch.Tensor] = {}
-    loss, (new_mstate, _, _) = model.loss_fn(
+    loss, aux = model.loss_fn(
         params, mstate, batch, True, rng, sinks=sinks if sparse_tables
-        else None)
+        else None, collect_summaries=with_summaries)
+    new_mstate = aux[0]
     sink_items = sorted(sinks.items())
     grads = torch.autograd.grad(
         loss, [t for _, t in leaves] + [s for _, s in sink_items],
@@ -63,6 +66,8 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
                 for k in ("uids", "ids", "perm", "tiles")}
         sparse_lib.apply_fused_update(t, tree_get(params, t.path), rg,
                                       plan, opt_state["sparse"][name])
+    if with_summaries:
+        return new_mstate, loss.detach(), aux[3]
     return new_mstate, loss.detach()
 
 
