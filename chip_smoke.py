@@ -22,7 +22,10 @@ each on stdout:
    plain version's, one PyTorch library call's and the bound, and the
    device time of the kernel and of the library call from a torch.profiler
    window of 10 more calls each, after a warm-up call (the event time less the device time is the
-   wrapper's host time); K1 and K2 are each called twice and must give the
+   wrapper's host time), and again with the L2 cache flushed before each
+   call by a device-to-device copy of twice its size, left out of the
+   window (the warm window re-reads inputs that fit in the 50 MB L2); K1
+   and K2 are each called twice and must give the
    same bits (K2's line gives the sub-window the kernel launches with, which
    must be the one its wrapper assumes);
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
@@ -70,6 +73,23 @@ each on stdout:
    latest (equal to the CLI Trainer's own evaluate), with no kernel launch;
    ``tools.pred.main``'s one line a test row; the summary file's scalar and
    histogram tags; ``tools.inspect_checkpoint.main`` listing every leaf;
+7. serving from phase 6's latest checkpoint (step 4): ``tools.export.main``
+   in-process (the bundle's bytes and seconds; the d32 table exported as
+   [10,000,128, 32] bfloat16); a ``ServingModel`` on the card (max batch
+   1024, buckets 16 / 128 / 1024) warmed up; the first 1024 test rows'
+   scores bit for bit ``predict_step``'s on the same bucket, and all 25,600
+   test rows bit for bit ``Trainer.predict``'s from the restored step 4 at
+   the same batch of 1024; a ``PredictorServer`` on TCP (and gRPC where the grpc
+   package imports; its line says which): the C++ client, built from
+   cpp/serving_client.cc into build/native, prints what the Python TCP
+   client gets, a malformed row comes back valid: false with the rows after
+   it unshifted, status answers, and a version 2 exported while four
+   clients score is hot-reloaded with every request answered and the old
+   model drained; ``tools.bench_serving.main`` over TCP at concurrency 1, 8
+   and 64 with 1 and 64 rows a request (fewer device calls than requests
+   at 64);
+   ``tools.microbench_serving_latency.main`` (device ms by bucket); and no
+   kernel launch anywhere in the phase;
 then one JSON line describing the kernels, and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
@@ -117,31 +137,62 @@ def on_device(e):
             and not e.key.startswith("ProfilerStep"))
 
 
-def device_ms(fn, calls=10):
+_L2 = {}
+
+
+def flush_l2():
+    """Evict the card's L2 cache (50 MB on an H100): a device-to-device copy
+    of twice its size, which shows in a profile as one "Memcpy DtoD"."""
+    import torch
+    if not _L2:
+        n = 2 * torch.cuda.get_device_properties(0).L2_cache_size
+        _L2["src"] = torch.ones(n, dtype=torch.uint8, device="cuda")
+        _L2["dst"] = torch.empty_like(_L2["src"])
+    _L2["dst"].copy_(_L2["src"])
+
+
+def device_ms(fn, calls=10, flushed=False, attempts=3):
     """Device time of one ``fn()`` by what ran: every kernel, memset and
     copy on the card in a torch.profiler window around ``calls`` calls,
     after one warm-up call inside the profiler (the tracer can miss the
-    first operations after it starts) -> {short name: ms per call}."""
+    first operations after it starts) -> ({short name: ms per call},
+    whether the window is whole).  The tracer also drops events now and
+    then (a whole window, or some of a kernel's launches): a window is
+    whole when it holds device work and every entry ran a multiple of
+    ``calls`` times; up to ``attempts`` windows are taken until one is.
+    ``flushed``: the L2 cache is flushed before each call (``flush_l2``),
+    and the flush's copies are left out, so the inputs come from HBM, as
+    the step's first touch of them does; the call itself must then make
+    no device-to-device copy."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls,
-                                   repeat=1)) as prof:
-        for i in range(calls + 1):
-            fn()
-            if i == calls:
-                torch.cuda.synchronize()
-            prof.step()
-    parts = {}
-    for e in prof.key_averages():
-        if on_device(e) and dev_us(e) > 0:
-            m = re.search(r"(\w+)[<(]", e.key)
-            name = m.group(1) if m else e.key.split(" (")[0]
-            parts[name] = parts.get(name, 0.0) + dev_us(e) / 1e3 / calls
-    return parts
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls,
+                                       repeat=1)) as prof:
+            for i in range(calls + 1):
+                if flushed:
+                    flush_l2()
+                fn()
+                if i == calls:
+                    torch.cuda.synchronize()
+                prof.step()
+        parts, whole = {}, True
+        for e in prof.key_averages():
+            if flushed and "DtoD" in e.key:
+                continue
+            if on_device(e) and dev_us(e) > 0:
+                m = re.search(r"(\w+)[<(]", e.key)
+                name = m.group(1) if m else e.key.split(" (")[0]
+                parts[name] = parts.get(name, 0.0) + dev_us(e) / 1e3 / calls
+                whole = whole and e.count % calls == 0
+        if parts and whole:
+            return parts, True
+    return parts, False
 
 
 def bits(t):
@@ -236,16 +287,32 @@ def timed_row(name, source, replaces, max_err, tol_text, ok, fn, plain,
            "ms": median_ms(fn, 20, dev), "plain_ms": median_ms(plain, 20, dev),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": median_ms(library, 20, dev)}
-    parts, lib_parts = device_ms(fn), device_ms(library)
-    row["device_ms"] = sum(parts.values())
-    row["library_device_ms"] = sum(lib_parts.values())
+    windows = {"device_ms": device_ms(fn),
+               "library_device_ms": device_ms(library),
+               "device_ms_flushed": device_ms(fn, flushed=True),
+               "library_device_ms_flushed": device_ms(library, flushed=True)}
+    if any("DtoD" in k for key in ("device_ms", "library_device_ms")
+           for k in windows[key][0]):
+        raise SystemExit(f"{name}: a device-to-device copy in the call; "
+                         f"the flushed time could not leave out the flush")
+    for key, (p, _) in windows.items():
+        row[key] = sum(p.values())
+    # windows the profiler left incomplete in every attempt
+    row["profile_incomplete"] = [k for k, (_, whole) in windows.items()
+                                 if not whole]
+    parts, cold = windows["device_ms"][0], windows["device_ms_flushed"][0]
     log(f"phase 1: {name}: max_abs_err {max_err:.3g} ({tol_text}) "
         f"{'ok' if ok else 'FAILED'}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); on the device: kernel "
         f"{row['device_ms']:.4f} ms ("
         + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-        + f"), library {row['library_device_ms']:.4f} ms")
+        + f"), library {row['library_device_ms']:.4f} ms; L2 flushed "
+        f"before each call: kernel {row['device_ms_flushed']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in cold.items())
+        + f"), library {row['library_device_ms_flushed']:.4f} ms"
+        + (f"; the profiler dropped events in {row['profile_incomplete']}"
+           if row["profile_incomplete"] else ""))
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version")
     return row
@@ -420,6 +487,7 @@ def phase_kernels(plan, batch, device):
         n1 * (4 + 4 + d1 * 4) + b1 * d1 * 4, n1 * d1))
     rows_out.append(p2_row)
     del seg, w, dpool, got, want, offsets
+    _L2.clear()
     torch.cuda.empty_cache()
     return rows_out
 
@@ -798,10 +866,11 @@ def state_diff(a, b):
             for leaf in same_bits(getattr(a, what), getattr(b, what))]
 
 
-def phase_cli(card):
+def phase_cli(card, tmp):
     """Phase 6: train -> restore -> resume -> eval -> pred -> inspect
     through the port's CLIs and checkpoints at the production config (see
-    the module docstring).  -> the launches of the CLI's train run."""
+    the module docstring), in the directory ``tmp``, which the caller
+    removes.  -> the launches of the CLI's train run."""
     import contextlib
     import gc
     import io
@@ -822,7 +891,6 @@ def phase_cli(card):
     from wide_deep_tpu_torch.training.summary import read_records
 
     t_phase = time.time()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     cwd = os.getcwd()
     real_step, real_save = Trainer.train_batch, ck.CheckpointManager.save
     try:
@@ -1029,7 +1097,292 @@ def phase_cli(card):
     finally:
         Trainer.train_batch, ck.CheckpointManager.save = real_step, real_save
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+SERVING_BATCH = 1024        # ServingModel max_batch_size: buckets 16, 128, 1024
+
+
+def _bundle_bytes(version_dir):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(version_dir) for f in files)
+
+
+def phase_serving(card, tmp):
+    """Phase 7: serving on the card from phase 6's latest checkpoint (step
+    4 in ``tmp``; see the module docstring).  -> the launches counted
+    across the phase (all must be 0)."""
+    import concurrent.futures as futures
+    import contextlib
+    import gc
+    import io
+    import subprocess
+    import threading
+
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.serving.client import (TcpPredictorClient,
+                                                    build_cpp_client)
+    from wide_deep_tpu_torch.serving.server import (PredictorServer,
+                                                    ServingModel)
+    from wide_deep_tpu_torch.tools import (bench_serving,
+                                           microbench_serving_latency)
+    from wide_deep_tpu_torch.tools import export as export_tool
+    from wide_deep_tpu_torch.training.loop import Trainer, to_device
+    from wide_deep_tpu_torch.training.step import predict_step
+
+    t_phase = time.time()
+    conf = os.path.join(tmp, "conf")
+    model_root = os.path.join(tmp, "model")
+    export_root = os.path.join(tmp, "export")
+    test_tsv = os.path.join(tmp, "test.tsv")
+    with open(test_tsv, encoding="utf-8") as f:
+        rows = [line.rstrip("\n") for line in f if line.strip()]
+    reset_counts()                      # the serving path starts here
+
+    def export(version):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            path = export_tool.main(["--conf_dir", conf, "--model_dir",
+                                     model_root, "--export_dir",
+                                     export_root, "--model_version",
+                                     str(version)])
+        return path, time.perf_counter() - t0
+
+    # (1) export step 4
+    v1, export_s = export(1)
+    with open(os.path.join(v1, "bundle.json")) as f:
+        meta = json.load(f)
+    n_bytes = _bundle_bytes(v1)
+    if meta["global_step"] != 4:
+        raise SystemExit(f"phase 7: the bundle holds step "
+                         f"{meta['global_step']}")
+    log(f"phase 7: tools.export.main wrote step 4 as {v1} in "
+        f"{export_s:.2f} s: {n_bytes} bytes on {card}")
+
+    # (2) the ServingModel on the card
+    t0 = time.perf_counter()
+    model = ServingModel(v1, SERVING_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    d32 = model.params["dnn"]["embed"]["d32"]
+    if tuple(d32.shape) != (10000128, 32) or d32.dtype != torch.bfloat16:
+        raise SystemExit(f"phase 7: the served d32 table is "
+                         f"{tuple(d32.shape)} {d32.dtype}")
+    t0 = time.perf_counter()
+    model.warmup()
+    warm_s = time.perf_counter() - t0
+    log(f"phase 7: ServingModel loaded in {load_s:.2f} s "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; d32 "
+        f"[10000128, 32] bfloat16), warmed buckets {model.batch_buckets} "
+        f"in {warm_s:.2f} s on {card}")
+
+    # (3) scores: predict_step on the same bucket bit for bit; all test rows
+    # against Trainer.predict from the restored step 4
+    first = rows[:SERVING_BATCH]
+    got = model.score_rows(first)
+    with torch.inference_mode():
+        want = predict_step(model.model, model.params, model.mstate,
+                            to_device(model.transform(first, SERVING_BATCH),
+                                      model.device,
+                                      torch.cuda.Stream()).claim())
+    want = want["probabilities"][:len(first)].cpu().numpy()
+    if not np.array_equal(np.asarray(got["scores"], np.float32), want):
+        raise SystemExit("phase 7: served scores differ from predict_step "
+                         "on the same bucket")
+    t0 = time.perf_counter()
+    served = model.score_rows(rows)
+    serve_all_s = time.perf_counter() - t0
+    # Trainer.predict from the restored step 4 at the server's batch of
+    # 1024 rows: the same weights (the export casts the d32 table to
+    # bfloat16, as the Trainer's gather casts the rows it reads) and the
+    # same kernels at the same shapes, so the same bits.  At another batch
+    # size cuBLAS picks another GEMM kernel, whose float32 sums can round
+    # a bfloat16 activation the other way: up to 8.7e-4 in a probability
+    # against a batch of 25,600
+    tr = Trainer(Config(conf), "wide_deep", model_dir=model_root,
+                 device="cuda", overrides={"keep_train": True,
+                                           "batch_size": SERVING_BATCH})
+    ref = list(tr.predict(test_tsv))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    probs = np.asarray(served["scores"], np.float32)
+    ref_p = np.array([p["probabilities"] for p in ref], np.float32)
+    ids = np.asarray(served["class_ids"])
+    ref_ids = np.array([int(p["class_ids"]) for p in ref])
+    if (len(ref) != len(rows) or not all(served["valid"])
+            or not np.array_equal(probs, ref_p)
+            or not np.array_equal(ids, ref_ids)):
+        err = (float(np.abs(probs - ref_p).max())
+               if probs.shape == ref_p.shape else None)
+        raise SystemExit(f"phase 7: served vs Trainer.predict: {len(ref)} "
+                         f"predictions for {len(rows)} rows, max |dp| "
+                         f"{err}")
+    log(f"phase 7: scores: {len(first)} rows bit for bit predict_step's on "
+        f"the same 1024-row bucket; all {len(rows)} test rows in one "
+        f"request ({-(-len(rows) // SERVING_BATCH)} chunks) in "
+        f"{serve_all_s:.2f} s, bit for bit Trainer.predict's from the "
+        f"restored step 4 at batch {SERVING_BATCH}, on {card}")
+
+    # (4) the server: TCP, and gRPC where the grpc package imports
+    try:
+        import grpc  # noqa: F401
+        port = 0
+    except ImportError:
+        port = None
+    srv = PredictorServer(model, port=port, tcp_port=0,
+                          model_base_path=export_root,
+                          reload_interval_s=0.5)
+    srv.start()
+    log(f"phase 7: PredictorServer on TCP :{srv.tcp_port}"
+        + (f" and gRPC :{srv.port}" if port is not None
+           else " only: the grpc package does not import here"))
+    c = TcpPredictorClient(port=srv.tcp_port, timeout=120)
+    try:
+        some = rows[:8]
+        resp = c.predict(some)
+        py_lines = [f"{i}\tclass: {cid}\tprobability: {p[cid]:.6f}"
+                    for i, (p, cid) in enumerate(zip(resp["scores"],
+                                                     resp["class_ids"]))]
+        built = build_cpp_client()
+        data = os.path.join(tmp, "some.tsv")
+        with open(data, "w", encoding="utf-8") as f:
+            f.write("\n".join(some) + "\n")
+        proc = subprocess.run(
+            [built["path"], f"--data_file={data}", "--num_rows=8",
+             "--server_host=localhost", f"--server_port={srv.tcp_port}"],
+            capture_output=True, text=True, timeout=120)
+        if proc.returncode or proc.stdout.splitlines() != py_lines:
+            raise SystemExit(f"phase 7: the C++ client printed "
+                             f"{proc.stdout!r} ({proc.stderr!r}), the "
+                             f"Python TCP client {py_lines}")
+        if port is not None:
+            from wide_deep_tpu_torch.serving.client import PredictorClient
+            g = PredictorClient(port=srv.port, timeout=120)
+            try:
+                if g.predict(some)["scores"] != resp["scores"]:
+                    raise SystemExit("phase 7: gRPC and TCP disagree")
+            finally:
+                g.close()
+        mixed = c.predict(some[:3] + ["bad\trow"] + some[3:])
+        if (mixed["valid"] != [True] * 3 + [False] + [True] * 5
+                or mixed["scores"][3] != [0.0, 0.0]
+                or mixed["scores"][:3] + mixed["scores"][4:]
+                != resp["scores"]):
+            raise SystemExit(f"phase 7: the malformed row gave {mixed}")
+        status = c.status()["models"]
+        if [(m["name"], m["version"]) for m in status] != [("wide_deep",
+                                                           "1")]:
+            raise SystemExit(f"phase 7: status {status}")
+        log(f"phase 7: the C++ client (built into "
+            f"{os.path.relpath(built['path'], ROOT)} in "
+            f"{built['seconds']:.1f} s) and the Python TCP client printed "
+            f"the same {len(py_lines)} lines"
+            + (", gRPC the same scores" if port is not None else "")
+            + f"; a malformed 4th row came back valid: false with zero "
+            f"scores and the rows after it unshifted; status {status}")
+
+        # hot reload to version 2 under load
+        stop = threading.Event()
+        seen, errors = [], []
+
+        def hammer():
+            cl = TcpPredictorClient(port=srv.tcp_port, timeout=120)
+            try:
+                while not stop.is_set():
+                    try:
+                        r = cl.predict(some)
+                        if r["scores"] != resp["scores"]:
+                            errors.append("scores changed")
+                        seen.append(r["model_version"])
+                    except Exception as e:  # noqa: BLE001 — counted
+                        errors.append(repr(e))
+            finally:
+                cl.close()
+
+        old = srv.model
+        with futures.ThreadPoolExecutor(4) as pool:
+            running = [pool.submit(hammer) for _ in range(4)]
+            try:
+                t0 = time.time()
+                v2, export2_s = export(2)
+                deadline = time.time() + 120
+                while srv.model.version != "2" and time.time() < deadline:
+                    time.sleep(0.1)
+                swap_s = time.time() - t0
+                n_swap = len(seen)
+                while len(seen) < n_swap + 20 and time.time() < deadline:
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+            for f in running:
+                f.result(timeout=120)
+        old.batcher._thread.join(timeout=60)
+        if (srv.model.version != "2" or errors or "1" not in seen
+                or "2" not in seen or old.batcher._thread.is_alive()):
+            raise SystemExit(f"phase 7: hot reload: version "
+                             f"{srv.model.version}, errors {errors[:3]}, "
+                             f"versions seen {sorted(set(seen))}")
+        log(f"phase 7: hot reload: version 2 exported ({export2_s:.2f} s) "
+            f"while 4 TCP clients scored; served {swap_s:.2f} s after the "
+            f"export began; {len(seen)} requests in flight around the swap "
+            f"all answered ({seen.count('1')} by version 1, "
+            f"{seen.count('2')} by version 2), the old model drained and "
+            f"closed")
+    finally:
+        c.close()
+        srv.stop()
+        srv.model.close()
+    del model, old, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) bench_serving at concurrency 1, 8, 64 with 1 and 64 rows a
+    # request, over TCP: a connection is a server thread, where the gRPC
+    # endpoint's pool of 8 workers would hold 64 clients to 8 requests in
+    # the server at once
+    bench = []
+    for rpr in (1, 64):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench += bench_serving.main(
+                ["--bundle_dir", v2, "--port", "0", "--transport", "tcp",
+                 "--rows_per_request", str(rpr), "--concurrency", "1,8,64"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for line in bench:
+        log(f"phase 7: bench_serving {json.dumps(line)}")
+        if line["errors"] or line["device"] != card:
+            raise SystemExit(f"phase 7: bench line {line}")
+        if (line["concurrency"] == 64
+                and line["device_calls"] >= line["requests"]):
+            raise SystemExit(f"phase 7: no coalescing at concurrency 64: "
+                             f"{line}")
+
+    # (6) the latency of one scoring call by bucket
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        lat = microbench_serving_latency.main(["--bundle_dir", v2])
+    for row in lat:
+        log(f"phase 7: serving latency bucket {row['bucket']}: device "
+            f"{row['device_ms']:.4f} ms ({row['device_us_per_row']:.3f} "
+            f"us/row), one call by events {row['event_ms']:.4f} ms, host "
+            f"transform {row['host_ms']:.3f} ms, copy {row['copy_ms']:.4f} "
+            f"ms on {card}; top on the device: "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in row["device_top"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (7) no kernel of the port ran anywhere in the phase
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise SystemExit(f"phase 7: serving launched {launched}")
+    log(f"phase 7: no kernel launched (K1, K2, K3, P1, P2 all 0); phase 7 "
+        f"in {time.time() - t_phase:.1f} s")
+    return counts()
 
 
 def count_key(name):
@@ -1101,7 +1454,14 @@ def main():
     phase_bench(card)
     gc.collect()
     torch.cuda.empty_cache()
-    cli_counts = phase_cli(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_counts = phase_cli(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serving(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # K1 (the d16 ok=0 site on file steps), K2 and K3 launch on the train
     # path, P1 and P2 on the tools' path; the CLI path's launches beside

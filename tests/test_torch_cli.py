@@ -9,8 +9,8 @@ inspect_checkpoint}``) and estimator facade, on the CPU.
 * ``--help`` of each tool, the ``--conf_dir`` pre-scan, the warning for an
   unknown flag, the refusal of a multi-process launch, Ctrl-C saving then
   exiting 130;
-* the estimator surface as tests/test_estimator.py has it, without export
-  (which raises until serving is ported), and the dense ProximalAdagrad
+* the estimator surface as tests/test_estimator.py has it, its export read
+  back by ``load_bundle`` and served, and the dense ProximalAdagrad
   its canned builder uses against the JAX package's (the same float32
   formula, which XLA fuses and rounds in another order: rtol 1e-5).
 """
@@ -235,12 +235,31 @@ def test_wide_and_deep_classifier(tmp_path):
     assert final["loss"] < first["loss"]
     assert est.global_step == 11
     assert len(list(est.predict(UNIT_FIXTURE))) == 10
+    # export: the saved step as a bundle that load_bundle reads back, whose
+    # forward gives the estimator's predictions
+    from wide_deep_tpu_torch.serving.export import load_bundle
+    from wide_deep_tpu_torch.serving.server import ServingModel
+    path = est.export_savedmodel(str(tmp_path / "export"), model_version=2,
+                                 as_text=True)
+    assert path == str(tmp_path / "export" / "2")
+    assert os.path.exists(os.path.join(path, "params.txt"))
+    model, params, _, meta = load_bundle(path, device="cpu")
+    assert meta["global_step"] == 11 and model.model_type == "wide_deep"
+    assert torch.equal(params["linear"]["w"],
+                       est._trainer.params["linear"]["w"])
+    served = ServingModel(path, 16, device="cpu")
+    try:
+        with open(UNIT_FIXTURE) as f:
+            rows = [line.rstrip("\n") for line in f if line.strip()]
+        got = served.score_rows(rows)["scores"]
+    finally:
+        served.close()
+    want = [p["probabilities"].tolist() for p in est.predict(UNIT_FIXTURE)]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     # each train() ends with a save: evaluate can pin the first one
     pinned = est.evaluate(UNIT_FIXTURE, checkpoint_path=os.path.join(
         est.model_dir, "1"))
     assert pinned == dict(first, global_step=1)
-    with pytest.raises(NotImplementedError, match="serving"):
-        est.export_savedmodel(str(tmp_path / "export"))
 
 
 def test_multi_dnn_classifier(tmp_path):

@@ -728,3 +728,101 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.detach().clone().to(device)
+
+
+def _launches():
+    return (tsc.range_launches, tsc.window_launches, tsc.window_ok0_launches,
+            trowdma.rowdma_launches, trowdma.bulk_scatter_launches,
+            tgather.resident_gather_launches)
+
+
+@pytest.fixture
+def card_bundle(cuda_device, tmp_path, monkeypatch):
+    """Two steps of the small Trainer on the card (d8 under the fused
+    sparse optimizer), saved and exported -> (trainer, version dir)."""
+    import os
+
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.serving.export import export_savedmodel
+    tr = _small_trainer(tmp_path, monkeypatch, "m", TRAIN1)
+    tr.train_file(TRAIN1, max_steps=2)
+    tr.save()
+    path = export_savedmodel(tr.config, str(tmp_path / "export"),
+                             model_type="wide_deep",
+                             model_dir=os.path.dirname(tr.model_dir))
+    return tr, path
+
+
+@pytest.mark.cuda
+def test_cuda_serving_bundle_round_trip(card_bundle):
+    """The bundle of a Trainer trained on the card loads onto the card
+    leaf for leaf as it loads on the host, bit for bit; the fused d8 table
+    is its [rows, 8] embedding block, the live table's first 8 columns."""
+    from wide_deep_tpu_torch.serving.export import load_bundle
+    tr, path = card_bundle
+    _, params, mstate, meta = load_bundle(path, device="cuda")
+    _, hparams, hmstate, _ = load_bundle(path, device="cpu")
+    assert meta["global_step"] == 2
+    from wide_deep_tpu_torch.optim import tree_items
+    on_card = dict(tree_items({"p": params, "m": mstate}))
+    on_host = dict(tree_items({"p": hparams, "m": hmstate}))
+    assert sorted(map(str, on_card)) == sorted(map(str, on_host))
+    for k, v in on_card.items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v.cpu().reshape(-1).view(torch.uint8),
+                           on_host[k].reshape(-1).view(torch.uint8)), k
+    d8 = params["dnn"]["embed"]["d8"]
+    live = tr.params["dnn"]["embed"]["d8"]
+    assert live.shape[1] == 128 and d8.shape == (live.shape[0], 8)
+    assert torch.equal(d8, live[:, :8].to(d8.dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_served_scores_are_predict_step_without_kernels(card_bundle):
+    """Scores served from the card equal predict_step on the same
+    transformed bucket bit for bit; 8 concurrent requests, coalesced into
+    buckets of other sizes, within rtol 1e-6 of them (cuBLAS picks its
+    kernel by shape); the TCP endpoint returns them; serving launches none
+    of the port's kernels."""
+    import concurrent.futures as futures
+
+    from paths import PRED1
+    from wide_deep_tpu_torch.serving.client import TcpPredictorClient
+    from wide_deep_tpu_torch.serving.server import (PredictorServer,
+                                                    ServingModel)
+    from wide_deep_tpu_torch.training.loop import to_device
+    from wide_deep_tpu_torch.training.step import predict_step
+    _, path = card_bundle
+    with open(PRED1) as f:
+        rows = [line.rstrip("\n") for line in f if line.strip()][:100]
+    m = ServingModel(path, 128, batch_timeout_micros=20_000, device="cuda")
+    srv = PredictorServer(m, port=None, tcp_port=0)
+    srv.start()
+    try:
+        m.warmup()
+        before = _launches()
+        got = m.score_rows(rows)
+        stream = torch.cuda.Stream()
+        with torch.inference_mode():
+            want = predict_step(m.model, m.params, m.mstate, to_device(
+                m.transform(rows, 128), m.device, stream).claim())
+        np.testing.assert_array_equal(np.asarray(got["scores"], np.float32),
+                                      want["probabilities"][:100].cpu()
+                                      .numpy())
+        with futures.ThreadPoolExecutor(8) as pool:
+            parts = list(pool.map(lambda i: m.score_rows(rows[i:i + 5]),
+                                  range(0, 40, 5), timeout=60))
+        for i, part in zip(range(0, 40, 5), parts):
+            np.testing.assert_allclose(part["scores"],
+                                       got["scores"][i:i + 5], rtol=1e-6,
+                                       atol=1e-7)
+        c = TcpPredictorClient(port=srv.tcp_port, timeout=60)
+        try:
+            assert c.predict(rows)["scores"] == got["scores"]
+        finally:
+            c.close()
+        torch.cuda.synchronize()
+        assert _launches() == before
+    finally:
+        srv.stop()
+        m.close()

@@ -117,3 +117,46 @@ def test_port_builds_its_own_loader():
     lib = native.library()
     assert os.path.dirname(lib._name) == os.path.join(REPO, "build", "native")
     assert os.path.basename(lib._name).startswith("libwdtfastdata_")
+
+
+def test_serving_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The serving entry points run on the card unless the caller asks for
+    the CPU: without one they raise naming CUDA before reading anything."""
+    from wide_deep_tpu_torch.serving.export import load_bundle
+    from wide_deep_tpu_torch.serving.server import ServingModel
+    from wide_deep_tpu_torch.tools import (bench_serving,
+                                           microbench_serving_latency, serve)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "no_bundle" / "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingModel(missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_bundle(missing)
+    (tmp_path / "versions" / "1").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--model_base_path", str(tmp_path / "versions"),
+                    "--port", "0"])
+    for tool in (bench_serving, microbench_serving_latency):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(["--bundle_dir", missing])
+
+
+def test_port_builds_its_own_serving_client():
+    """The C++ client is compiled from cpp/serving_client.cc with
+    cpp/Makefile's CXXFLAGS (a program: no -shared) into build/native/; the
+    binary committed in cpp/ is never run."""
+    import re
+
+    from wide_deep_tpu_torch.serving import client
+    assert client.CLIENT_SOURCE == os.path.join(REPO, "cpp",
+                                                "serving_client.cc")
+    with open(os.path.join(REPO, "cpp", "Makefile")) as f:
+        flags = re.search(r"^CXXFLAGS \?= (.*)$", f.read(), re.M).group(1)
+    assert client.CLIENT_FLAGS == tuple(flags.split())
+    assert "-shared" not in client.CLIENT_FLAGS
+    committed = os.path.join("cpp", "serving_client") + "'"
+    for path in _port_files():
+        with open(path) as f:
+            text = f.read()
+        assert committed not in text and '"cpp", "serving_client")' \
+            not in text, path

@@ -5,14 +5,15 @@ The reference exposed ``WideAndDeepClassifier`` (joint.py:272-433),
 ``MultiDNNClassifier`` (dnn.py:298-443) and the builders
 ``build_estimator`` / ``build_custom_estimator``
 (build_estimator.py:201-294).  This module offers the same surface,
-``train / evaluate / predict``, as a thin veneer over the port's Trainer;
-``export_savedmodel`` waits for the serving port.  Each runs on the card
-unless it is given ``device="cpu"``.
+``train / evaluate / predict / export_savedmodel``, as a thin veneer over
+the port's Trainer.  Each runs on the card unless it is given
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Iterator, List, Optional
 
 from wide_deep_tpu_torch.config import Config
@@ -47,9 +48,16 @@ class _EstimatorBase:
 
     def export_savedmodel(self, export_dir: str, model_version: int = 1,
                           as_text: bool = False) -> str:
-        raise NotImplementedError(
-            "export_savedmodel needs the serving modules "
-            "(serving/export.py), which are not ported yet")
+        """Save the current step, then export it as a serving bundle
+        (serving/export.py) -> the versioned bundle path."""
+        from wide_deep_tpu_torch.serving.export import export_savedmodel
+        self._trainer.save()
+        base = os.path.dirname(self._trainer.model_dir)
+        return export_savedmodel(
+            self._trainer.config, export_dir,
+            model_type=self._trainer.model_type,
+            model_dir=base, model_version=model_version, as_text=as_text,
+            n_classes=self._trainer.n_classes)
 
     @property
     def global_step(self) -> int:

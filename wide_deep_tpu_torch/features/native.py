@@ -63,45 +63,55 @@ def compiler_names() -> str:
     return (f"$CXX={cxx!r}, " if cxx else "") + "g++, c++"
 
 
-def library_path(cxx: str) -> str:
-    """build/native/libwdtfastdata_<digest>.so for the current source,
-    flags and host."""
-    h = hashlib.sha1(" ".join((cxx,) + CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+def output_path(cxx: str, source: str, flags: Sequence[str], stem: str,
+                ext: str = "") -> str:
+    """build/native/<stem>_<digest><ext>: the digest covers the compiler,
+    ``flags``, ``source`` and what ``-march=native`` means on this host."""
+    h = hashlib.sha1(" ".join((cxx, *flags)).encode())
+    with open(source, "rb") as f:
         h.update(f.read())
     # what -march=native resolves to on this host
     target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
                             capture_output=True, text=True)
     h.update((target.stdout + target.stderr).encode())
-    return os.path.join(BUILD_DIR, f"libwdtfastdata_{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:12]}{ext}")
 
 
-def build() -> Dict[str, object]:
-    """Compile ``cpp/fastdata.cc`` unless this host's library exists.
-    -> {"path", "built" (False: found), "seconds"}.  Processes that build
-    at once take turns on a lock file; the library appears under its name
-    only when complete.  Raises with the compiler's output when it fails."""
+def compile_cached(source: str, flags: Sequence[str], stem: str,
+                   ext: str = "") -> Dict[str, object]:
+    """Compile ``source`` with ``flags`` into ``output_path``'s file
+    unless this host's build exists.  -> {"path", "built" (False: found),
+    "seconds"}.  Processes that build at once take turns on a lock file;
+    the output appears under its name only when complete.  Raises with the
+    compiler's output when it fails."""
     cxx = find_compiler()
     if cxx is None:
         raise RuntimeError(f"no C++ compiler found ({compiler_names()}): "
-                           f"the loader is compiled from {SOURCE}")
+                           f"{os.path.basename(source)} is compiled from "
+                           f"{source}")
     t0 = time.perf_counter()
-    out = library_path(cxx)
+    out = output_path(cxx, source, flags, stem, ext)
     os.makedirs(BUILD_DIR, exist_ok=True)
     built = False
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
             tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+            proc = subprocess.run([cxx, *flags, "-o", tmp, source],
                                   capture_output=True, text=True)
             if proc.returncode:
-                raise RuntimeError(f"{cxx} failed on {SOURCE}:\n"
+                raise RuntimeError(f"{cxx} failed on {source}:\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
             built = True
     return {"path": out, "built": built,
             "seconds": time.perf_counter() - t0}
+
+
+def build() -> Dict[str, object]:
+    """Compile ``cpp/fastdata.cc`` unless this host's library exists
+    (``compile_cached``)."""
+    return compile_cached(SOURCE, CXX_FLAGS, "libwdtfastdata", ".so")
 
 
 def library() -> ctypes.CDLL:

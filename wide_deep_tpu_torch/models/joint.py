@@ -75,9 +75,13 @@ class WideDeep:
         """(params, state) drawn from a ``torch.Generator`` seeded with
         ``seed`` on ``device`` (default: the card); state = {'bn': ...}.
         Shapes come from one forward over the first row of
-        ``sample_batch``, which must lie on that device."""
+        ``sample_batch``, which must lie on that device.  On the ``meta``
+        device only shapes and dtypes come out and nothing is drawn or
+        allocated."""
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(int(seed))
+        gen = torch.Generator(
+            device="cpu" if device.type == "meta" else device
+        ).manual_seed(int(seed))
         sample = {k: v[:1] for k, v in sample_batch.items()}
         params: Dict[str, Any] = {}
         state: Dict[str, Any] = {}

@@ -8,7 +8,12 @@
 * ``microbench_rowdma_scatter``: P2, the bulk row scatter (counterpart of
   tools/microbench_rowdma_scatter.py);
 * ``bench``: training throughput, the device step and the loader-to-card
-  path (counterpart of bench.py).
+  path (counterpart of bench.py);
+* ``export``, ``serve``, ``client``: a serving bundle from a checkpoint, the
+  scoring server and its client (counterparts of tools/{export,serve,
+  client}.py); ``bench_serving`` and ``microbench_serving_latency``:
+  serving throughput by concurrency and one scoring call's latency by
+  batch bucket.
 
 Each runs on the card unless it is given ``--device cpu``, where the kernel
 wrappers take their plain versions.  Shared here by the microbenchmarks and

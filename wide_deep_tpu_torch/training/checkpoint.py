@@ -61,6 +61,12 @@ def leaf_name(path: Tuple) -> str:
     return "/".join(parts)
 
 
+def named_leaves(tree) -> Iterator[Tuple[str, Any]]:
+    """(``leaf_name`` of its path, leaf) for every leaf of ``tree``."""
+    for path, leaf in _flatten(tree):
+        yield leaf_name(path), leaf
+
+
 def _is_int(x) -> bool:
     return isinstance(x, int) and not isinstance(x, bool)
 
@@ -108,10 +114,32 @@ def read_index(model_dir: str, step: int) -> Dict[str, Any]:
         return json.load(f)
 
 
+def write_flat(dst_dir: str, tensors: Dict[str, torch.Tensor],
+               ints: Dict[str, int], **fields) -> None:
+    """Write ``tensors`` ({name: host tensor}) as ``tensors.pt`` and their
+    index as ``index.json`` into ``dst_dir`` (made if missing): the format,
+    ``fields``, every tensor's shape and torch dtype, and ``ints``."""
+    os.makedirs(dst_dir, exist_ok=True)
+    torch.save(tensors, os.path.join(dst_dir, TENSORS_FILE))
+    index = {"format": FORMAT, **fields,
+             "tensors": {n: {"shape": list(t.shape),
+                             "dtype": _dtype_name(t.dtype)}
+                         for n, t in tensors.items()},
+             "ints": ints}
+    with open(os.path.join(dst_dir, INDEX_FILE), "w") as f:
+        json.dump(index, f, indent=1)
+
+
+def load_flat(src_dir: str) -> Dict[str, torch.Tensor]:
+    """The tensors ``write_flat`` wrote into ``src_dir``, memory-mapped on
+    the host."""
+    return torch.load(os.path.join(src_dir, TENSORS_FILE),
+                      map_location="cpu", weights_only=True, mmap=True)
+
+
 def load_tensors(model_dir: str, step: int) -> Dict[str, torch.Tensor]:
     """The step's tensors, memory-mapped on the host."""
-    return torch.load(os.path.join(step_dir(model_dir, step), TENSORS_FILE),
-                      map_location="cpu", weights_only=True, mmap=True)
+    return load_flat(step_dir(model_dir, step))
 
 
 class CheckpointManager:
@@ -176,15 +204,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         tmp = os.path.join(self.model_dir, f".{step}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(tensors, os.path.join(tmp, TENSORS_FILE))
-        index = {"format": FORMAT, "step": step, "time": saved_at,
-                 "tensors": {n: {"shape": list(t.shape),
-                                 "dtype": _dtype_name(t.dtype)}
-                             for n, t in tensors.items()},
-                 "ints": ints}
-        with open(os.path.join(tmp, INDEX_FILE), "w") as f:
-            json.dump(index, f, indent=1)
+        write_flat(tmp, tensors, ints, step=step, time=saved_at)
         os.replace(tmp, step_dir(self.model_dir, step))
         self._retain()
         self.last_save.update(

@@ -146,6 +146,26 @@ class DeviceBatch(dict):
         return self
 
 
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              stream: "torch.cuda.Stream") -> DeviceBatch:
+    """A host batch to the card in one copy: every key ``pack_layout``
+    lays out is packed into one pinned buffer, sent by one copy on
+    ``stream``, and viewed back per key.  The pinned buffer comes from
+    PyTorch's caching host allocator, which records the copy on it and
+    hands its memory out again only once the copy is done, so a caller may
+    pack the next batch at once."""
+    offsets, n = pack_layout(batch)
+    with torch.cuda.device(device):
+        host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        pack_into(host.numpy(), batch, offsets)
+        with torch.cuda.stream(stream):
+            buf = torch.empty(n, dtype=torch.uint8, device=device)
+            buf.copy_(host, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+    return DeviceBatch(unpack(buf, batch, offsets), buf, ready)
+
+
 class Trainer:
     def __init__(self, config: Optional[Config] = None,
                  model_type: Optional[str] = None,
@@ -286,19 +306,9 @@ class Trainer:
         of the numpy arrays."""
         if self.device.type != "cuda":
             return {k: torch.from_numpy(v) for k, v in batch.items()}
-        offsets, n = pack_layout(batch)
-        with torch.cuda.device(self.device):
-            host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-            pack_into(host.numpy(), batch, offsets)
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream()
-            stream = self._copy_stream
-            with torch.cuda.stream(stream):
-                buf = torch.empty(n, dtype=torch.uint8, device=self.device)
-                buf.copy_(host, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(stream)
-        return DeviceBatch(unpack(buf, batch, offsets), buf, ready)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return to_device(batch, self.device, self._copy_stream)
 
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch through ``_to_device``; a DeviceBatch claimed for
