@@ -90,6 +90,31 @@ each on stdout:
    at 64);
    ``tools.microbench_serving_latency.main`` (device ms by bucket); and no
    kernel launch anywhere in the phase;
+8. the training configurations beyond the production one, each from a
+   copy of conf/ with only the named model.yaml keys changed, each
+   Trainer freed before the next (K1's sites told apart by the output
+   shape each passes, ``site_names``; each configuration's own table of
+   launches a step, ``SITES_*``):
+   a. ``linear_fm_factors: 8`` (the fold goes off): the plan's wide_dim
+      and ``v``'s bytes; 3 synthetic steps, then 2 ``train_file`` steps on
+      a generated TSV run twice from one state, bit for bit (losses,
+      params, BN and optimizer state); K1 at the ``v`` site against its
+      plain version; a step's device time from a profiler window and the
+      FTRL sweep over ``v`` alone;
+   b. Adam, RMSProp, Momentum and SGD on both arms: 2 synthetic steps each,
+      finite losses, K3 0 a step (1 for SGD, whose fused table has no
+      slots), the MLP's and the biases' dense update on the card within 1
+      ulp of the same update on the host;
+   c. the production config: ``serve_file`` on 127.0.0.1 port 0 with a
+      generated TSV of 51,200 rows, ``Trainer.train_stream(max_batches=2)``:
+      each step launches what a file step does, and the same two batches,
+      read by ``StreamDataset`` again, through ``train_batch`` from the
+      checkpoint taken just before the stream give the same losses bit for
+      bit;
+   d. on that Trainer, 3 immediate steps against 3 deferred steps +
+      ``flush_step`` from one state and batches: losses, params, BN and
+      optimizer state and every count bit for bit; then
+      ``tools.experiment_defer_sparse.main``'s line;
 then one JSON line describing the kernels, and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
@@ -509,7 +534,7 @@ def counts():
            "K3": rowdma.rowdma_launches,
            "P1": gather.resident_gather_launches,
            "P2": rowdma.bulk_scatter_launches}
-    for d, n in scatter.range_launches_by_width.items():
+    for d, n in scatter.range_launches_by_width().items():
         out[f"K1 {K1_SITES.get(d, f'D={d}')}"] = n
     return out
 
@@ -517,12 +542,12 @@ def counts():
 def reset_counts():
     from wide_deep_tpu_torch.ops import gather, rowdma, scatter
     scatter.range_launches = 0
-    scatter.range_launches_by_width.clear()
     scatter.window_launches = 0
     scatter.window_ok0_launches = 0
     rowdma.rowdma_launches = 0
     gather.resident_gather_launches = 0
     rowdma.bulk_scatter_launches = 0
+    scatter.range_launches_by_shape.clear()
 
 
 def delta(before, after):
@@ -1385,6 +1410,591 @@ def phase_serving(card, tmp):
     return counts()
 
 
+# ------------------------------------------------------------------ phase 8
+FM_FACTORS = 8              # phase 8a's linear_fm_factors (model.yaml: 0)
+DEFER_STEPS = 3
+DENSE_OPTIMIZERS = ("Adam", "RMSProp", "Momentum", "SGD")
+# launches a step of each phase-8 configuration must add, by site; on the
+# d16 stream either K2 (ok=1) or K1 (ok=0) once, as check_step has it
+SITES_FM = {"K1 wide": 1, "K1 v": 1, "K1 d8": 1, "K1 d4": 1,
+            "K1 d32 compact": 1, "K3": 1}
+SITES_FOLDED = {"K1 wide": 1, "K1 d8": 1, "K1 d4": 1, "K1 d32 compact": 1,
+                "K3": 1}
+# Adam, RMSProp and Momentum are not sparse-capable: the plan's
+# sparse_opt goes off and the d32 table's gather backward is
+# index_select's own (its 25,600 ids take no kernel plan)
+SITES_NO_SPARSE = {"K1 wide": 1, "K1 d8": 1, "K1 d4": 1,
+                   "K1 d32 compact": 0, "K3": 0}
+
+
+def conf_copy(tmp, name, **model):
+    """conf/ copied to ``tmp/<name>`` with the named model.yaml keys
+    replaced -> its Config."""
+    import re
+
+    from wide_deep_tpu_torch.config import Config
+    dst = os.path.join(tmp, name)
+    shutil.copytree(os.path.join(ROOT, "conf"), dst)
+    path = os.path.join(dst, "model.yaml")
+    with open(path) as f:
+        text = f.read()
+    for key, value in model.items():
+        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {value}", text)
+        if n != 1:
+            raise SystemExit(f"phase 8: no {key} in conf/model.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return Config(dst)
+
+
+def site_names(trainer):
+    """{(rows, D): site} of K1's call sites in ``trainer``'s step, from its
+    plan: the wide gather (and the FM factors'), the kernel-planned
+    groups (D + 1 when folded), the d16 stream's ok=0 branch and the fused
+    tables' compact sums."""
+    plan = trainer.plan
+    out = {(plan.wide_dim, 1): "K1 wide"}
+    if trainer.model.fm_factors:
+        out[plan.wide_dim, trainer.model.fm_factors] = "K1 v"
+    for g in plan.groups:
+        width = g.dim + (1 if g.folded else 0)
+        if plan.sparse_opt_group(g, BATCH):
+            n = BATCH * plan.group_packed_len[g.dim]
+            out[n, g.dim] = f"K1 d{g.dim} compact"
+        elif plan.scatter_group(g, BATCH):
+            out[g.rows, width] = f"K1 d{g.dim}"
+        elif plan.window_group(g, BATCH):
+            out[g.rows, width] = f"K1 d{g.dim} ok=0"
+    return out
+
+
+def site_counts(trainer):
+    """The counters by site of ``trainer``'s step (``site_names``)."""
+    from wide_deep_tpu_torch.ops import scatter
+    c = {k: v for k, v in counts().items() if not k.startswith("K1 ")}
+    names = site_names(trainer)
+    for shape, n in scatter.range_launches_by_shape.items():
+        key = names.get(shape, f"K1 rows={shape[0]} D={shape[1]}")
+        c[key] = c.get(key, 0) + n
+    return c
+
+
+def nonzero(d):
+    """A counter change without its zero entries, for the log."""
+    return {k: v for k, v in d.items() if v}
+
+
+def check_sites(what, d, sites):
+    """One step's counter changes ``d`` against a configuration's table
+    ``sites``; on the d16 stream K2 once, or (ok=0) K1 once at its site
+    and K2 never; the probes never."""
+    ok0 = d["d16 ok=0"]
+    want = dict(sites, **{"K1 d16 ok=0": ok0})
+    got = {k: d.get(k, 0) for k in want}
+    n_k1 = sum(v for k, v in want.items() if k.startswith("K1"))
+    if (got != want or ok0 + d["K2"] != 1 or d["K1"] != n_k1
+            or d["P1"] or d["P2"]):
+        raise SystemExit(f"{what} launched {d}, want {want}")
+
+
+def clone_tree(tree):
+    """Tensors cloned, everything else copied, structure kept."""
+    import copy
+
+    import torch
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return copy.deepcopy(tree)
+
+
+def clone_state(trainer):
+    """A copy on the card of what a step changes: params, BN state,
+    optimizer state, step and generator state."""
+    return {"params": clone_tree(trainer.params),
+            "mstate": clone_tree(trainer.mstate),
+            "opt_state": clone_tree(trainer.opt_state),
+            "step": trainer.global_step, "rng": trainer._gen.get_state()}
+
+
+def load_state(trainer, snap):
+    """Put ``clone_state``'s copy back: params and optimizer tensors in
+    place (the step updates them in place), counts and keys as they were,
+    the BN state (a new tree each step) as a copy."""
+    import torch
+
+    def put(live, saved):
+        for k in list(live) if isinstance(live, dict) else []:
+            if k not in saved:
+                del live[k]
+        for k, v in (saved.items() if isinstance(saved, dict)
+                     else enumerate(saved)):
+            if isinstance(v, torch.Tensor):
+                with torch.no_grad():
+                    live[k].copy_(v)
+            elif isinstance(v, (dict, list)) and k in live:
+                put(live[k], v)
+            else:
+                live[k] = clone_tree(v)
+    put(trainer.params, snap["params"])
+    put(trainer.opt_state, snap["opt_state"])
+    trainer.mstate = clone_tree(snap["mstate"])
+    trainer.global_step = snap["step"]
+    trainer._gen.set_state(snap["rng"])
+
+
+def ulp_distance(a, b):
+    """Elementwise distance in units in the last place of two tensors of
+    one floating dtype (+0 and -0 are one value)."""
+    import torch
+    ints = {torch.bfloat16: (torch.int16, 0x7FFF),
+            torch.float32: (torch.int32, 0x7FFFFFFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(ints[0]).long()
+        mag = i & ints[1]
+        return torch.where(i < 0, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def recorded_update(trainer):
+    """Wrap ``trainer.tx.update_`` for its next call: the MLP's and the
+    biases' (param, grad, slots, lr, count) are copied to the host before
+    the card's update and their results after it -> a function that
+    replays the same update on the host and returns the worst ulp distance
+    to the card's result by leaf."""
+    from wide_deep_tpu_torch.optim import slot_inits, tree_get
+    tx = trainer.tx
+    taken = []
+
+    def host(t):
+        return t.detach().cpu().clone()
+
+    def wrapped(params, grads, state):
+        del tx.update_                  # the next steps run the real one
+        picked = []
+        for arm, (spec, schedule) in tx.arms.items():
+            st = state[arm]
+            for path, w in tx.leaves(params, arm):
+                if "towers" in path or path[-1] in ("b", "bias"):
+                    picked.append((arm, path, spec, schedule(st["count"]),
+                                   st["count"], host(w), host(grads[path]),
+                                   {k: host(st[k][path])
+                                    for k in slot_inits(spec)}))
+        tx.update_(params, grads, state)
+        for arm, path, spec, lr, count, w, g, slots in picked:
+            after = [host(tree_get(params, path))] + [
+                host(state[arm][k][path]) for k in slots]
+            taken.append((path, spec, lr, count, w, g, slots, after))
+
+    tx.update_ = wrapped
+
+    def replay():
+        from wide_deep_tpu_torch.optim import leaf_update_
+        worst = {}
+        for path, spec, lr, count, w, g, slots, after in taken:
+            leaf_update_(spec, lr, count, w, g, slots)
+            worst["/".join(map(str, path))] = max(
+                int(ulp_distance(a, b).max())
+                for a, b in zip([w] + list(slots.values()), after))
+        return worst
+    return replay
+
+
+def synthetic_steps(trainer, sites, n, what, seed):
+    """``n`` synthetic steps, each synchronized and its launches checked
+    against ``sites`` -> (losses, step ms)."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    rng = np.random.default_rng(seed)
+    losses, ms = [], []
+    for i in range(n):
+        batch = testing.synthetic_batch(trainer.plan, BATCH, rng)
+        db = trainer._to_device(batch)
+        torch.cuda.synchronize()
+        c0, t0 = site_counts(trainer), time.perf_counter()
+        losses.append(float(trainer.train_batch(db)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check_sites(f"{what} synthetic step {i}",
+                    delta(c0, site_counts(trainer)), sites)
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{what}: non-finite loss {losses}")
+    return losses, ms
+
+
+def release():
+    """Return the card memory of objects the caller has dropped."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_fm(card, tmp):
+    """8a: the FM term on the production config (module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.ops import scatter
+    from wide_deep_tpu_torch.optim import leaf_update_, slot_inits
+    from wide_deep_tpu_torch.tools import median_ms
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    t0 = time.time()
+    config = conf_copy(tmp, "conf_fm", linear_fm_factors=FM_FACTORS)
+    tr = Trainer(config, "wide_deep", model_dir=os.path.join(tmp, "fm"),
+                 overrides={"batch_size": BATCH, "pack_budget": 3},
+                 device="cuda")
+    if tr.plan.fold or tr.model.fm_factors != FM_FACTORS:
+        raise SystemExit("phase 8a: the FM config kept the fold")
+    tr.ensure_initialized(restore=False)
+    torch.cuda.synchronize()
+    v = tr.params["linear"]["v"]
+    log(f"phase 8a: FM k={FM_FACTORS}: fold off, wide_dim "
+        f"{tr.plan.wide_dim}, v {list(v.shape)} float32 "
+        f"{v.numel() * 4} bytes; K1 sites {sorted(site_names(tr).values())}"
+        f"; initialised in {time.time() - t0:.1f} s")
+    losses, ms = synthetic_steps(tr, SITES_FM, 3, "phase 8a", seed=41)
+    log(f"phase 8a: 3 synthetic steps {', '.join(f'{x:.2f}' for x in ms)} "
+        f"ms, losses {losses}; launches per step {SITES_FM} and K2 1")
+
+    # two file steps, twice from the same state: bit for bit
+    tsv = os.path.join(tmp, "fm.tsv")
+    testing.generate_ctr_tsv(config, tsv, 2 * BATCH, seed=0,
+                             hash_spread=None)
+    snap = clone_state(tr)
+    runs = []
+    for _ in range(2):
+        load_state(tr, snap)
+        steps = []
+        train_batch = tr.train_batch
+
+        def counted(batch, **kw):
+            c0 = site_counts(tr)
+            loss = train_batch(batch, **kw)
+            steps.append(delta(c0, site_counts(tr)))
+            return loss
+        tr.train_batch = counted
+        tr.train_file(tsv, max_steps=2)
+        torch.cuda.synchronize()
+        del tr.train_batch
+        for i, d in enumerate(steps):
+            check_sites(f"phase 8a: file step {i}", d, SITES_FM)
+        runs.append(([float(x) for x in list(tr.losses)[-2:]],
+                     clone_state(tr)))
+    (la, sa), (lb, sb) = runs
+    bad = [f"{w}/{leaf}" for w in ("params", "mstate", "opt_state")
+           for leaf in same_bits(sa[w], sb[w])]
+    if la != lb or bad or sa["step"] != sb["step"]:
+        raise SystemExit(f"phase 8a: two runs of the file steps differ: "
+                         f"losses {la} / {lb}, leaves {bad[:8]}")
+    del snap, runs, sa, sb
+    log(f"phase 8a: 2 train_file steps run twice from one state: losses "
+        f"{la} both times, params, BN and optimizer state bit for bit; "
+        f"launches per step {[nonzero(d) for d in steps]}")
+
+    # the v site's K1 against its plain version, at this batch's shape
+    batch = testing.synthetic_batch(tr.plan, BATCH,
+                                    np.random.default_rng(43))
+    ids = torch.from_numpy(batch["wide_ids"].reshape(-1)).to(
+        tr.device).long()
+    gen = torch.Generator(device=tr.device).manual_seed(5)
+    ct = torch.randn((ids.numel(), FM_FACTORS), generator=gen,
+                     device=tr.device)
+    perm = torch.argsort(ids, stable=True)
+    sids, iperm = ids[perm].int().contiguous(), perm.int().contiguous()
+    rows = tr.plan.wide_dim
+
+    def kernel():
+        return scatter.sorted_stream_sum(sids, iperm, ct, rows,
+                                         torch.float32)
+
+    def plain():
+        return scatter.range_scatter_add_plain(sids, iperm, ct, rows,
+                                               torch.float32)
+    got, again, want = kernel(), kernel(), plain()
+    mag = scatter.range_scatter_add_plain(sids, iperm, ct.abs(), rows,
+                                          torch.float32)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    ok = bool((err <= 1e-6 * mag + 1e-6).all())
+    if not ok or not torch.equal(bits(got), bits(again)):
+        raise SystemExit(f"phase 8a: K1 at the v site disagrees with its "
+                         f"plain version (max err {float(err.max()):.3g}) "
+                         f"or with itself")
+    def library():
+        return torch.zeros((rows, FM_FACTORS), device=ct.device).index_add_(
+            0, ids, ct)
+    k_ms = median_ms(kernel, 20, got.device)
+    p_ms = median_ms(plain, 20, got.device)
+    l_ms = median_ms(library, 20, got.device)
+    n = ids.numel()
+    stream_bytes = n * (4 + 4 + FM_FACTORS * 4)
+    out_bytes = rows * FM_FACTORS * 4
+    b_ms, b_by = bound_ms(stream_bytes + out_bytes, n * FM_FACTORS)
+    b_memset = bound_ms(stream_bytes + 2 * out_bytes, 0)[0]
+    log(f"phase 8a: K1 at the v site ({n} ids -> [{rows}, {FM_FACTORS}] "
+        f"float32): max_abs_err {float(err.max()):.3g} (<= 1e-6 of the "
+        f"row's sum of |g| + 1e-6) ok, the same bits twice; kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (zeros + index_add_) "
+        f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_memset:.4f} with "
+        f"the memset)")
+    del got, again, want, mag, ct, ids, perm, sids, iperm
+
+    # device time of a step, and of the FTRL sweep over v alone
+    batches = [tr._to_device(testing.synthetic_batch(
+        tr.plan, BATCH, np.random.default_rng(44 + i))) for i in range(3)]
+    torch.cuda.synchronize()
+    tr.train_batch(batches[0])          # outside the window: warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            tr.train_batch(b)
+        torch.cuda.synchronize()
+    step_dev = sum(dev_us(e) for e in prof.key_averages()
+                   if on_device(e)) / 1e3 / 2
+    spec, schedule = tr.tx.arms["linear"]
+    st = tr.opt_state["dense"]["linear"]
+    path = ("linear", "v")
+    w = v.detach().clone()
+    slots = {k: st[k][path].clone() for k in slot_inits(spec)}
+    g = torch.randn(w.shape, generator=gen, device=tr.device) * 1e-3
+    lr = schedule(st["count"])
+
+    def sweep():
+        leaf_update_(spec, lr, st["count"], w, g, slots)
+    sweep()
+    parts, _ = device_ms(sweep, calls=5)
+    sweep_ms = sum(parts.values())
+    log(f"phase 8a: device time a step {step_dev:.3f} ms (profiler, 2 "
+        f"steps); the FTRL sweep over v ([{rows}, {FM_FACTORS}] float32 with "
+        f"n and z) {sweep_ms:.3f} ms on the device over "
+        f"{len(parts)} kernel kinds, "
+        f"{100 * sweep_ms / max(step_dev, 1e-9):.1f}% of the step; phase 8a "
+        f"in {time.time() - t0:.1f} s")
+    del tr, batches, w, g, slots, v, st, prof
+    release()
+    return {"step_ms": ms, "device_ms": step_dev, "v_sweep_ms": sweep_ms}
+
+
+def phase_optimizers(card, tmp):
+    """8b: Adam, RMSProp, Momentum and SGD on both arms."""
+    import torch
+
+    from wide_deep_tpu_torch.training.loop import Trainer
+    out = {}
+    for name in DENSE_OPTIMIZERS:
+        t0 = time.time()
+        config = conf_copy(tmp, f"conf_{name}", linear_optimizer=name,
+                           dnn_optimizer=name)
+        tr = Trainer(config, "wide_deep",
+                     model_dir=os.path.join(tmp, name),
+                     overrides={"batch_size": BATCH, "pack_budget": 3},
+                     device="cuda")
+        sparse = name == "SGD"
+        if tr.plan.sparse_opt != sparse or bool(tr.sparse_tables) != sparse:
+            raise SystemExit(f"phase 8b: {name}: sparse_opt "
+                             f"{tr.plan.sparse_opt}, tables "
+                             f"{sorted(tr.sparse_tables)}")
+        tr.ensure_initialized(restore=False)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        replay = recorded_update(tr)
+        sites = SITES_FOLDED if sparse else SITES_NO_SPARSE
+        losses, ms = synthetic_steps(tr, sites, 2, f"phase 8b: {name}",
+                                     seed=51)
+        worst = replay()
+        if not worst or max(worst.values()) > 1:
+            raise SystemExit(f"phase 8b: {name}: the card's dense update "
+                             f"differs from the host's by {worst} ulp")
+        big = max(tr.plan.groups, key=lambda g: g.rows)
+        table = tr.params["dnn"]["embed"][f"d{big.dim}"]
+        log(f"phase 8b: {name} on both arms: initialised in {init_s:.1f} s "
+            f"(d{big.dim} {list(table.shape)} {str(table.dtype)[6:]}), "
+            f"2 synthetic "
+            f"steps {', '.join(f'{x:.2f}' for x in ms)} ms, losses {losses};"
+            f" launches per step {sites} and K2 1; dense update of "
+            f"{len(worst)} MLP and bias leaves on the card vs the host: at "
+            f"most {max(worst.values())} ulp")
+        out[name] = ms
+        del tr, table, replay
+        release()
+    return out
+
+
+def phase_stream(card, tmp):
+    """8c: the stream; -> the Trainer, for 8d."""
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.stream import StreamDataset, serve_file
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    t0 = time.time()
+    config = Config(os.path.join(ROOT, "conf"))
+    tsv = os.path.join(tmp, "stream.tsv")
+    testing.generate_ctr_tsv(config, tsv, 2 * BATCH, seed=31,
+                             hash_spread=None)
+    tr = Trainer(config, "wide_deep", model_dir=os.path.join(tmp, "stream"),
+                 overrides={"batch_size": BATCH, "pack_budget": 3},
+                 device="cuda")
+    tr.ensure_initialized(restore=False)
+    t1 = time.time()
+    tr.save()                           # step 0, just before the stream
+    save_s = time.time() - t1
+    steps = []
+    train_batch = tr.train_batch
+
+    def counted(batch, **kw):
+        c0 = counts()
+        loss = train_batch(batch, **kw)
+        steps.append(delta(c0, counts()))
+        return loss
+    tr.train_batch = counted
+    srv, thread = serve_file(tsv, "127.0.0.1", 0)
+    t1 = time.time()
+    tr.train_stream("127.0.0.1", srv.getsockname()[1], max_batches=2,
+                    flush_timeout_s=5.0)
+    torch.cuda.synchronize()
+    stream_s = time.time() - t1
+    del tr.train_batch
+    srv.close()
+    thread.join(60)
+    if len(steps) != 2 or tr.global_step != 2:
+        raise SystemExit(f"phase 8c: the stream took {len(steps)} steps")
+    for i, d in enumerate(steps):
+        check_step(f"phase 8c: stream step {i}", d)
+    stream_losses = [float(x) for x in list(tr.losses)[-2:]]
+
+    # the same two batches from step 0's checkpoint through train_batch
+    tr._restore_tree(tr._ckpt, step=0)
+    srv, thread = serve_file(tsv, "127.0.0.1", 0)
+    ds = StreamDataset(tr.plan, "127.0.0.1", srv.getsockname()[1],
+                       mode="train", batch_size=BATCH,
+                       pos_weight=tr.pos_weight, neg_weight=tr.neg_weight,
+                       flush_timeout_s=5.0, max_batches=2,
+                       transformer=tr.transformer)
+    again = [float(tr.train_batch(b)) for b in ds]
+    srv.close()
+    thread.join(60)
+    if again != stream_losses:
+        raise SystemExit(f"phase 8c: stream losses {stream_losses}, the "
+                         f"same batches from the checkpoint {again}")
+    log(f"phase 8c: train_stream over {ds.rows_seen} streamed rows: 2 steps"
+        f" in {stream_s:.1f} s, losses {stream_losses}, launches per step "
+        f"{[nonzero(d) for d in steps]}; from the step-0 checkpoint (saved "
+        f"in {save_s:.1f} s) "
+        f"the same two batches read again gave the same losses bit for bit;"
+        f" phase 8c in {time.time() - t0:.1f} s")
+    return tr
+
+
+def check_flush(d):
+    """flush_step's counter changes: the d32 table's pending update, K1
+    (its compact sum) and K3 once each, nothing else."""
+    if ({k: v for k, v in d.items() if v}
+            != {"K1": 1, "K1 d32 compact": 1, "K3": 1}):
+        raise SystemExit(f"phase 8d: the flush launched {d}")
+
+
+def phase_defer(card, tr):
+    """8d: deferred against immediate on ``tr`` (the production config)
+    -> seconds taken."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.training.step import (flush_step, seed_pending,
+                                                   train_step)
+
+    t0 = time.time()
+    rng = np.random.default_rng(61)
+    batches = [tr._device_batch(testing.synthetic_batch(tr.plan, BATCH, rng))
+               for _ in range(DEFER_STEPS)]
+    snap = clone_state(tr)
+    runs = []
+    for defer in (False, True):
+        load_state(tr, snap)
+        tr.opt_state.pop("sparse_pending", None)
+        if defer:
+            seed_pending(tr.sparse_tables, tr.opt_state, batches[0])
+        losses, steps = [], []
+        for b in batches:
+            c0 = counts()
+            tr.mstate, loss = train_step(tr.model, tr.tx, tr.params,
+                                         tr.mstate, tr.opt_state, b,
+                                         tr.sparse_tables, rng=tr._gen,
+                                         defer_sparse=defer)
+            torch.cuda.synchronize()
+            d = delta(c0, counts())
+            check_step(f"phase 8d: {'deferred' if defer else 'immediate'} "
+                       f"step {len(steps)}", d)
+            steps.append(d)
+            losses.append(float(loss))
+        if defer:
+            c0 = counts()
+            flush_step(tr.sparse_tables, tr.params, tr.opt_state)
+            torch.cuda.synchronize()
+            check_flush(delta(c0, counts()))
+            del tr.opt_state["sparse_pending"]
+        runs.append((losses, clone_state(tr)))
+    (la, sa), (lb, sb) = runs
+    bad = [f"{w}/{leaf}" for w in ("params", "mstate", "opt_state")
+           for leaf in same_bits(sa[w], sb[w])]
+    counts_a = [s["count"] for s in sa["opt_state"]["sparse"].values()]
+    counts_b = [s["count"] for s in sb["opt_state"]["sparse"].values()]
+    if la != lb or bad or counts_a != counts_b:
+        raise SystemExit(f"phase 8d: deferred differs from immediate: "
+                         f"losses {la} / {lb}, counts {counts_a} / "
+                         f"{counts_b}, leaves {bad[:8]}")
+    log(f"phase 8d: {DEFER_STEPS} deferred steps + flush_step = "
+        f"{DEFER_STEPS} immediate steps bit for bit (losses {la}; params, "
+        f"BN, optimizer state, counts {counts_a}); each step launched what "
+        f"an immediate step does, the flush one K1 and one K3 more")
+    del snap, runs, sa, sb, batches
+    return time.time() - t0
+
+
+def phase_defer_tool():
+    """8d's experiment: ``tools.experiment_defer_sparse.main`` (its own
+    two programs; the caller has freed every Trainer)."""
+    import contextlib
+    import io
+
+    from wide_deep_tpu_torch.tools import experiment_defer_sparse as exp
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = exp.main([])
+    log(f"phase 8d: tools.experiment_defer_sparse in "
+        f"{time.time() - t0:.1f} s: {json.dumps(line)}")
+    return line
+
+
+def phase_configs(card, tmp):
+    """Phase 8: the training configurations beyond the production one."""
+    t0 = time.time()
+    fm = phase_fm(card, tmp)
+    opts = phase_optimizers(card, tmp)
+    tr = phase_stream(card, tmp)
+    phase_defer(card, tr)
+    del tr
+    release()
+    line = phase_defer_tool()
+    log(f"phase 8 in {time.time() - t0:.1f} s")
+    return {"fm": fm, "optimizers": opts, "defer": line}
+
+
 def count_key(name):
     """A kernels-line row's counter: "K1 range_scatter_add d8" -> "K1 d8",
     "K3 rowdma_scatter_rows d32" -> "K3", "P2 bulk_scatter_rows f32" ->
@@ -1460,6 +2070,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_serving(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_configs_")
+    try:
+        phase_configs(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -50,14 +50,25 @@ def _overrides(data, **over):
     return out
 
 
-def _conf(tmp_path, dropout=0.0):
+# model.yaml lines the "adam" and "fm" cases replace
+OTHER_CONFIGS = {
+    "adam": {"linear_optimizer: {name: Ftrl": "linear_optimizer: {name: Adam",
+             "dnn_optimizer: Adagrad": "dnn_optimizer: Adam"},
+    "fm": {"linear_fm_factors: 0": "linear_fm_factors: 4"}}
+
+
+def _conf(tmp_path, dropout=0.0, case=None):
     conf_dir = write_conf(tmp_path / "conf")
+    path = os.path.join(conf_dir, "model.yaml")
+    with open(path) as f:
+        text = f.read()
     if dropout:
-        path = os.path.join(conf_dir, "model.yaml")
-        with open(path) as f:
-            text = f.read()
-        with open(path, "w") as f:
-            f.write(text.replace("dnn_dropout:", f"dnn_dropout: {dropout}"))
+        text = text.replace("dnn_dropout:", f"dnn_dropout: {dropout}")
+    for old, new in OTHER_CONFIGS.get(case, {}).items():
+        assert old in text, old
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
     return conf_dir
 
 
@@ -344,6 +355,48 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch, dropout):
         third.train_batch(batches[2])
         assert float(list(third.losses)[-1]) != float(
             list(whole.losses)[-1])
+
+
+@pytest.mark.parametrize("case", ["adam", "fm"])
+def test_round_trip_and_resume_other_configs(tmp_path, monkeypatch, case):
+    """Adam on both arms (the plan's sparse optimizer goes off: Adam is
+    not sparse-capable) and the FM term: a save / restore round trip gives
+    every leaf's bits back, and 2 steps + save + restore + 1 step equals
+    3 uninterrupted steps, bit for bit.  The inspector names the new
+    states."""
+    from wide_deep_tpu_torch.training.checkpoint import inspect_checkpoint
+    force_plans(monkeypatch, "range")
+    conf = _conf(tmp_path, dropout=0.5, case=case)
+    data = _rows(tmp_path, "train", 3 * B)
+    whole = _port(conf, tmp_path / "whole", data)
+    batches = list(whole._dataset(data, "train"))
+    assert len(batches) == 3
+    for b in batches:
+        whole.train_batch(b)
+    first = _port(conf, tmp_path / "resumed", data)
+    for b in batches[:2]:
+        first.train_batch(b)
+    first.save()
+    again = _port(conf, tmp_path / "resumed", data)
+    again.ensure_initialized()
+    _assert_state_equal(first, again)
+    assert torch.equal(first._gen.get_state(), again._gen.get_state())
+    again.train_batch(batches[2])
+    _assert_state_equal(whole, again)
+    assert float(list(whole.losses)[-1]) == float(list(again.losses)[-1])
+    names = set(inspect_checkpoint(first.model_dir))
+    if case == "adam":
+        assert not first.sparse_tables and not first.plan.sparse_opt
+        for slot in ("mu", "nu"):
+            assert f"opt_state/dense/linear/{slot}/linear/w" in names
+            assert (f"opt_state/dense/dnn/{slot}/dnn/towers/0/hidden/0/"
+                    f"kernel") in names
+        assert not any("/accum/" in n for n in names)
+    else:
+        assert not first.plan.fold
+        assert "params/linear/v" in names
+        assert "opt_state/dense/linear/accum/linear/v" in names
+        assert "opt_state/dense/linear/linear/linear/v" in names
 
 
 def _jax_and_port_resume(tmp_path, monkeypatch):

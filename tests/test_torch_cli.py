@@ -113,6 +113,38 @@ def test_train_eval_pred_inspect(tmp_path, monkeypatch, capsys):
     assert pinned_leaves == {"step": 6}
 
 
+@pytest.mark.parametrize("edit", [
+    ("linear_fm_factors: 0", "linear_fm_factors: 4"),
+    ("dnn_optimizer: Adagrad", "dnn_optimizer: Adam")],
+    ids=["fm", "adam"])
+def test_train_other_configs(tmp_path, monkeypatch, edit):
+    """The train CLI on a conf with the FM term, and on one whose deep arm
+    takes Adam: every step's loss finite, the checkpoint holds the new
+    state, and eval reads it back."""
+    from wide_deep_tpu_torch.tools import eval as eval_tool
+    from wide_deep_tpu_torch.tools import train
+    from wide_deep_tpu_torch.training.checkpoint import inspect_checkpoint
+    argv = _setup(tmp_path, monkeypatch)
+    conf = argv[argv.index("--conf_dir") + 1]
+    path = os.path.join(conf, "model.yaml")
+    with open(path) as f:
+        text = f.read()
+    assert edit[0] in text
+    with open(path, "w") as f:
+        f.write(text.replace(*edit))
+    trainer = train.main(argv + ["--keep_train", "0", "--train_epochs", "1",
+                                 "--dynamic_train", "0"])
+    assert trainer.global_step == 4
+    assert all(np.isfinite(float(x)) for x in trainer.losses)
+    names = set(inspect_checkpoint(trainer.model_dir))
+    if "fm" in edit[1]:
+        assert "params/linear/v" in names and not trainer.plan.fold
+    else:
+        assert any(n.startswith("opt_state/dense/dnn/mu/") for n in names)
+    res = eval_tool.main(argv + ["--checkpoint_path", trainer.model_dir])
+    assert res["global_step"] == 4 and np.isfinite(res["loss"])
+
+
 @pytest.mark.parametrize("tool", ["train", "eval", "pred",
                                   "inspect_checkpoint"])
 def test_help(tool, capsys):

@@ -163,14 +163,14 @@ def test_cuda_range_kernel_matches_plain(cuda_device, kind, n, rows, d,
     tp = {k: torch.from_numpy(v).to(cuda_device) for k, v in plan.items()}
     g = g.to(cuda_device)
     before = tsc.range_launches
-    before_d = tsc.range_launches_by_width.get(d, 0)
+    before_d = tsc.range_launches_by_width().get(d, 0)
     out = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"], rows)
     again = tsc.range_scatter_add(tp["ids"], tp["perm"], g, tp["tiles"],
                                   rows)
     want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
     torch.cuda.synchronize()
     assert tsc.range_launches == before + 2
-    assert tsc.range_launches_by_width[d] == before_d + 2
+    assert tsc.range_launches_by_width()[d] == before_d + 2
     assert out.dtype == dtype and out.shape == (rows, d)
     assert torch.equal(_bits(out), _bits(again))
     _check_k1(out, want, ref, abs_sum)
@@ -379,13 +379,13 @@ def test_cuda_window_plan_ok0_runs_k1(cuda_device):
           if k != "ok"}
     tp["ok"] = torch.from_numpy(plan["ok"])          # stays on the host
     before = (tsc.window_ok0_launches, tsc.window_launches,
-              tsc.range_launches_by_width.get(d, 0))
+              tsc.range_launches_by_width().get(d, 0))
     out = tsc.apply_window_plan(tp, g, rows)
     again = tsc.apply_window_plan(tp, g, rows)
     want = tsc.range_scatter_add_plain(tp["ids"], tp["perm"], g, rows)
     torch.cuda.synchronize()
     assert (tsc.window_ok0_launches, tsc.window_launches,
-            tsc.range_launches_by_width[d]) == (
+            tsc.range_launches_by_width()[d]) == (
         before[0] + 2, before[1], before[2] + 2)
     assert out.dtype == torch.bfloat16 and out.shape == (rows, d)
     assert torch.equal(_bits(out), _bits(again))
@@ -602,13 +602,13 @@ def test_cuda_wide_gather_backward_is_deterministic(cuda_device):
     ct = torch.from_numpy(rng.normal(size=(ids.shape[0], 1)).astype(
         np.float32))
     grads = []
-    before = (tsc.range_launches, tsc.range_launches_by_width.get(1, 0))
+    before = (tsc.range_launches, tsc.range_launches_by_width().get(1, 0))
     for _ in range(3):
         w = torch.zeros((5000, 1), device=cuda_device, requires_grad=True)
         GatherRows.apply(w, ids.to(cuda_device)).backward(ct.to(cuda_device))
         grads.append(w.grad.cpu())
     assert (tsc.range_launches - before[0],
-            tsc.range_launches_by_width[1] - before[1]) == (3, 3)
+            tsc.range_launches_by_width()[1] - before[1]) == (3, 3)
     assert all(torch.equal(_bits(grads[0]), _bits(g)) for g in grads[1:])
     ref = np.zeros((5000, 1))
     mag = np.zeros((5000, 1))
@@ -826,3 +826,211 @@ def test_cuda_served_scores_are_predict_step_without_kernels(card_bundle):
     finally:
         srv.stop()
         m.close()
+
+
+# ------------------------------------------- optimizers, FM, defer (PR 10)
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Adagrad", "Ftrl", "ProximalAdagrad",
+                                  "SGD"])
+def test_cuda_compact_update_matches_cpu(cuda_device, name):
+    """apply_compact_update on the card (K1 once) against the same call on
+    the host: float32 rows from sums in another order, rtol 1e-5 / atol
+    1e-6; sentinel uids dropped, untouched rows bit for bit."""
+    from wide_deep_tpu_torch.ops.scatter import make_compact_plan
+    from wide_deep_tpu_torch.optim.sparse import (SparseTable,
+                                                  apply_compact_update,
+                                                  init_table_state)
+    rng = np.random.default_rng(5)
+    rows, d = 5000, 8
+    ids = (rng.zipf(1.3, 4096) % rows).astype(np.int32)
+    g = rng.normal(size=(ids.size, d)).astype(np.float32)
+    param = rng.normal(size=(rows, d)).astype(np.float32)
+    plan = make_compact_plan(ids, rows)
+    spec = {"name": name, "learning_rate": 0.1,
+            "l1_regularization_strength": 0.01,
+            "l2_regularization_strength": 0.1}
+    table = SparseTable(name="t", path=("t",), ids_key="ids", spec=spec,
+                        lr=0.1, dim=d)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = torch.from_numpy(param.copy()).to(dev)
+        st = init_table_state(table, p)
+        before = tsc.range_launches
+        apply_compact_update(table, p, torch.from_numpy(g).to(dev),
+                             {k: torch.from_numpy(v).to(dev)
+                              for k, v in plan.items()}, st)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tsc.range_launches - before == 1
+        out[str(dev)] = (p.cpu(), {k: v.cpu() for k, v in st.items()
+                                   if isinstance(v, torch.Tensor)})
+    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=1e-5, atol=1e-6)
+    for k in sc:
+        np.testing.assert_allclose(sg[k].numpy(), sc[k].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    untouched = np.setdiff1d(np.arange(rows), ids)
+    assert torch.equal(pg[untouched], torch.from_numpy(param)[untouched])
+
+
+@pytest.mark.cuda
+def test_cuda_fm_gather_backward_is_deterministic(cuda_device):
+    """The FM term's gradient of ``v`` on the card: K1 at width k over the
+    stably sorted pooled wide ids, the same bits on every call, and within
+    1e-5 of the host's (float32 sums in another order)."""
+    from wide_deep_tpu_torch.models.linear import _fm_term
+    rng = np.random.default_rng(7)
+    rows, k, b, pool = 20000, 8, 512, 40
+    ids = (rng.zipf(1.3, (b, pool)) % rows).astype(np.int32)
+    wts = rng.random((b, pool)).astype(np.float32)
+    v0 = (0.01 * rng.normal(size=(rows, k))).astype(np.float32)
+    grads = []
+    for dev in (cuda_device, cuda_device, cuda_device, "cpu"):
+        v = torch.from_numpy(v0).to(dev).requires_grad_(True)
+        before = tsc.range_launches_by_width().get(k, 0)
+        _fm_term(v, {"wide_ids": torch.from_numpy(ids).to(dev),
+                     "wide_wts": torch.from_numpy(wts).to(dev)},
+                 None).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tsc.range_launches_by_width()[k] - before == 1
+        grads.append(v.grad.cpu())
+    assert all(torch.equal(_bits(grads[0]), _bits(x)) for x in grads[1:3])
+    np.testing.assert_allclose(grads[0].numpy(), grads[3].numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+def _optimizer_trainer(tmp_path, monkeypatch, name, device, edits=()):
+    """A small-config Trainer whose deep arm takes optimizer ``name``, d8
+    unfolded under the fused sparse optimizer where ``name`` is sparse-
+    capable (SPARSE_MIN_ROWS 1), d4 folded under a range plan."""
+    import os
+
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.plan import FeaturePlan
+    from wide_deep_tpu_torch.optim import sparse as tsparse
+    from wide_deep_tpu_torch.testing import write_small_conf
+    from wide_deep_tpu_torch.training.loop import Trainer
+    conf_dir = str(tmp_path / f"conf_{name}")
+    if not os.path.isdir(conf_dir):
+        write_small_conf(conf_dir)
+        path = os.path.join(conf_dir, "model.yaml")
+        with open(path) as f:
+            text = f.read().replace("dnn_optimizer: Adagrad",
+                                    f"dnn_optimizer: {name}")
+        for old, new in edits:
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text + "\nwide_fold_max_rows: 20000\n")
+    monkeypatch.setattr(tsparse, "SPARSE_MIN_ROWS", 1)
+    monkeypatch.setattr(FeaturePlan, "scatter_group",
+                        lambda self, g, b: g.folded)
+    monkeypatch.setattr(FeaturePlan, "window_group", lambda self, g, b: False)
+    return Trainer(Config(conf_dir), "wide_deep", device=device,
+                   model_dir=str(tmp_path / f"m_{name}_{device}"),
+                   dtype=torch.float32,
+                   overrides=dict(batch_size=16, pack_budget=3,
+                                  train_data=TRAIN1, keep_train=False))
+
+
+@pytest.mark.cuda
+def test_cuda_sgd_fused_table_matches_cpu(cuda_device, tmp_path,
+                                          monkeypatch):
+    """dnn_optimizer: SGD keeps the fused table, with no slots: each step
+    launches K3 once and the d8 compact K1; 3 steps on the card against
+    the host from the same params, float32 round-off apart."""
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.optim import tree_items
+    cpu = _optimizer_trainer(tmp_path, monkeypatch, "SGD", "cpu")
+    gpu = _optimizer_trainer(tmp_path, monkeypatch, "SGD", "cuda")
+    assert [t.spec["name"] for t in gpu.sparse_tables.values()] == ["SGD"]
+    cpu.ensure_initialized(restore=False)
+    gpu.params = {k: _to(v, cuda_device) for k, v in cpu.params.items()}
+    gpu.mstate = {k: _to(v, cuda_device) for k, v in cpu.mstate.items()}
+    before = (tsc.range_launches_by_width().get(8, 0), trowdma.rowdma_launches)
+    cpu.train_file(TRAIN1, max_steps=3)
+    gpu.train_file(TRAIN1, max_steps=3)
+    torch.cuda.synchronize()
+    assert (tsc.range_launches_by_width()[8] - before[0],
+            trowdma.rowdma_launches - before[1]) == (3, 3)
+    np.testing.assert_allclose([float(x) for x in gpu.losses],
+                               [float(x) for x in cpu.losses], rtol=1e-4)
+    cpu_leaves = dict(tree_items(cpu.params))
+    for path, leaf in tree_items(gpu.params):
+        np.testing.assert_allclose(leaf.detach().cpu().numpy(),
+                                   cpu_leaves[path].detach().numpy(),
+                                   rtol=1e-3, atol=1e-4, err_msg=str(path))
+    assert not gpu.params["dnn"]["embed"]["d8"][:, 8:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_deferred_matches_immediate(cuda_device, tmp_path, monkeypatch):
+    """3 deferred steps + flush_step against 3 immediate steps on the card,
+    from the same params and batches, the deferred side's counts seeded at
+    -1: losses, params and optimizer state (every count) bit for bit.  A
+    deferred step launches what an immediate one does (its first step's
+    apply is the seed's); the flush adds one K1 and one K3."""
+    from paths import TRAIN1
+    from wide_deep_tpu_torch.training.step import (flush_step, seed_pending,
+                                                   train_step)
+    tr = _optimizer_trainer(tmp_path, monkeypatch, "Adagrad", "cuda")
+    tr.ensure_initialized(restore=False)
+    init = {w: _to(getattr(tr, w), cuda_device)
+            for w in ("params", "mstate")}
+    batches = []
+    for b in tr._dataset(TRAIN1, "train"):
+        batches.append(tr._device_batch(b))
+        if len(batches) == 3:
+            break
+    runs = []
+    for defer in (False, True):
+        tr.params = _to(init["params"], cuda_device)
+        tr.mstate = _to(init["mstate"], cuda_device)
+        tr.opt_state = None
+        tr._ckpt = None
+        tr.ensure_initialized(restore=False)
+        if defer:
+            seed_pending(tr.sparse_tables, tr.opt_state, batches[0])
+        losses, launches = [], []
+        for b in batches:
+            c0 = (tsc.range_launches, trowdma.rowdma_launches)
+            tr.mstate, loss = train_step(tr.model, tr.tx, tr.params,
+                                         tr.mstate, tr.opt_state, b,
+                                         tr.sparse_tables, rng=tr._gen,
+                                         defer_sparse=defer)
+            launches.append((tsc.range_launches - c0[0],
+                             trowdma.rowdma_launches - c0[1]))
+            losses.append(float(loss))
+        if defer:
+            c0 = (tsc.range_launches, trowdma.rowdma_launches)
+            flush_step(tr.sparse_tables, tr.params, tr.opt_state)
+            assert (tsc.range_launches - c0[0],
+                    trowdma.rowdma_launches - c0[1]) == (1, 1)
+            del tr.opt_state["sparse_pending"]
+        torch.cuda.synchronize()
+        runs.append((losses, launches, _to(tr.params, "cpu"),
+                     {"dense": _to_state(tr.opt_state["dense"]),
+                      "sparse": _to_state(tr.opt_state["sparse"])}))
+    (la, ka, pa, sa), (lb, kb, pb, sb) = runs
+    assert la == lb and ka == kb
+    assert all(k == (3, 1) for k in ka)   # d4 fold, d8 compact, wide; K3
+    from wide_deep_tpu_torch.optim import tree_items
+    for a, b in ((pa, pb), (sa, sb)):
+        la_, lb_ = dict(tree_items(a)), dict(tree_items(b))
+        assert sorted(map(str, la_)) == sorted(map(str, lb_))
+        for path, va in la_.items():
+            if isinstance(va, torch.Tensor):
+                assert torch.equal(va.reshape(-1).view(torch.uint8),
+                                   lb_[path].reshape(-1).view(torch.uint8)
+                                   ), path
+            else:
+                assert va == lb_[path], path
+
+
+def _to_state(tree):
+    if isinstance(tree, dict):
+        return {k: _to_state(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree

@@ -46,12 +46,14 @@ def _overrides(**over):
     return out
 
 
-def build_bundles(tmp, model_type="wide_deep", bf16=True, fused=False):
+def build_bundles(tmp, model_type="wide_deep", bf16=True, fused=False,
+                  edits=()):
     """Train the JAX Trainer 2 steps on the unit fixture, carry its params
     to a port Trainer, checkpoint both and export both bundles (version 1,
     with params.txt).  ``fused``: every embedding table trains as a fused
-    sparse-optimizer table.  -> namespace of the conf dir, the model dirs,
-    the two bundles' version dirs and the JAX params (numpy)."""
+    sparse-optimizer table; ``edits``: (old, new) replacements in
+    model.yaml.  -> namespace of the conf dir, the model dirs, the two
+    bundles' version dirs and the JAX params (numpy)."""
     from wide_deep_tpu.config import Config as JConfig
     from wide_deep_tpu.parallel import mesh as mesh_lib
     from wide_deep_tpu.serving.export import export_savedmodel as jexport
@@ -61,6 +63,15 @@ def build_bundles(tmp, model_type="wide_deep", bf16=True, fused=False):
     from wide_deep_tpu_torch.serving.export import export_savedmodel
     from wide_deep_tpu_torch.training.loop import Trainer as TTrainer
     conf_dir = write_conf(tmp / "conf", bf16=bf16)
+    if edits:
+        path = os.path.join(conf_dir, "model.yaml")
+        with open(path) as f:
+            text = f.read()
+        for old, new in edits:
+            assert old in text, old
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
     over = _overrides(**({"pack_budget": 3, "sparse_optimizer": True,
                           "scatter_mode": "pallas"} if fused else {}))
     out = SimpleNamespace(conf_dir=conf_dir, model_type=model_type,
@@ -115,6 +126,23 @@ def fused_bundles(tmp_path_factory):
                          model_type="deep", fused=True)
 
 
+@pytest.fixture(scope="module")
+def fm_bundles(tmp_path_factory):
+    return build_bundles(tmp_path_factory.mktemp("serving_fm"),
+                         edits=[("linear_fm_factors: 0",
+                                 "linear_fm_factors: 4")])
+
+
+@pytest.fixture(scope="module")
+def sgd_bundles(tmp_path_factory):
+    """Fused tables under SGD: no optimizer slots, so the checkpoint holds
+    them at the serving width, still float32."""
+    return build_bundles(tmp_path_factory.mktemp("serving_sgd"),
+                         model_type="deep", fused=True,
+                         edits=[("dnn_optimizer: Adagrad",
+                                 "dnn_optimizer: SGD")])
+
+
 def _bundle_json(version_dir):
     with open(os.path.join(version_dir, "bundle.json")) as f:
         return json.load(f)
@@ -148,7 +176,8 @@ def _assert_bits_equal(name, got, want):
                                       want.view(np.uint8), err_msg=name)
 
 
-@pytest.mark.parametrize("which", ["bundles", "fused_bundles"])
+@pytest.mark.parametrize("which", ["bundles", "fused_bundles",
+                                   "fm_bundles", "sgd_bundles"])
 def test_bundle_json_matches_jax(which, request):
     b = request.getfixturevalue(which)
     got, want = _bundle_json(b.port_bundle), _bundle_json(b.jax_bundle)
@@ -159,7 +188,8 @@ def test_bundle_json_matches_jax(which, request):
     assert got["model_type"] == b.model_type
 
 
-@pytest.mark.parametrize("which", ["bundles", "fused_bundles"])
+@pytest.mark.parametrize("which", ["bundles", "fused_bundles",
+                                   "fm_bundles", "sgd_bundles"])
 def test_bundle_tensors_match_jax(which, request):
     b = request.getfixturevalue(which)
     got, want = _port_bundle_leaves(b.port_bundle), \
@@ -170,9 +200,25 @@ def test_bundle_tensors_match_jax(which, request):
     if which == "bundles":
         assert got["params/dnn/embed/d8"].dtype == torch.bfloat16
         assert got["params/linear/fold/d4"].dtype == torch.float32
+    if which == "sgd_bundles":
+        # nothing to cut: the checkpoint holds the [rows, dim] float32
+        # block, cast to the embedding dtype
+        from wide_deep_tpu_torch.training.checkpoint import read_index
+        index = read_index(os.path.join(b.port_model, "deep"), b.step)
+        assert index["tensors"]["params/dnn/embed/d8"] == {
+            "shape": [123136, 8], "dtype": "float32"}
+        assert got["params/dnn/embed/d8"].dtype == torch.bfloat16
+        assert tuple(got["params/dnn/embed/d8"].shape) == (123136, 8)
+    if which == "fm_bundles":
+        # FM unfolds the plan: no fold columns, the factor table exported
+        assert tuple(got["params/linear/v"].shape)[1] == 4
+        assert not any("/fold/" in n for n in got)
+    else:
+        assert "params/linear/v" not in got
 
 
-@pytest.mark.parametrize("which", ["bundles", "fused_bundles"])
+@pytest.mark.parametrize("which", ["bundles", "fused_bundles",
+                                   "fm_bundles", "sgd_bundles"])
 def test_params_txt_matches_jax(which, request):
     b = request.getfixturevalue(which)
     with open(os.path.join(b.port_bundle, "params.txt")) as f:

@@ -324,10 +324,12 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
                      sinks: Optional[Dict[str, torch.Tensor]] = None):
     """Packed batch -> ([B, deep_input_dim] dense input, fold_wide | None).
 
-    ``sinks``: when a dict, the rows gathered for fused sparse-optimizer
-    groups become leaf tensors that require grad, stored under
-    ``d<dim>``; their ``.grad`` is the compact per-entry gradient the step
-    hands to optim/sparse.apply_fused_update."""
+    ``sinks``: when a dict, the rows gathered for the groups it names
+    (``d<dim>`` keys: the step's sparse tables with a compact plan in the
+    batch) are gathered from the detached table and become leaf tensors
+    that require grad, stored under their key; their gradient is the
+    compact per-entry gradient the step hands to optim/sparse's
+    apply_fused_update (fused tables) or apply_compact_update."""
     parts = []
     B = batch["mask"].shape[0]
     fold_wide = None
@@ -349,9 +351,6 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
                               fused_init)
             rows = table.detach().index_select(0, ids)[:, :g.dim]
             gathered = rows.to(embedding_dtype)
-            if sinks is not None:
-                gathered = gathered.detach().requires_grad_(True)
-                sinks[f"d{g.dim}"] = gathered
         else:
             def emb_init(gen, shape, device):
                 t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -360,7 +359,9 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
             table = store.get(("embed", f"d{g.dim}"), (g.rows, g.dim),
                               emb_init)
             scat = _plan_of(batch, g.dim)
-            if fold_params is not None and g.folded:
+            if sinks is not None and f"d{g.dim}" in sinks:
+                gathered = table.detach().index_select(0, ids)
+            elif fold_params is not None and g.folded:
                 fcol = fold_params[f"d{g.dim}"]
                 gathered, wide_rows = FusedGatherSplit.apply(table, fcol,
                                                              ids, scat)
@@ -373,6 +374,9 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
                 gathered = GatherWithPlan.apply(table, ids, scat)
             else:
                 gathered = table.index_select(0, ids)
+        if sinks is not None and f"d{g.dim}" in sinks:
+            gathered = gathered.detach().requires_grad_(True)
+            sinks[f"d{g.dim}"] = gathered
         weighted = gathered.float().reshape(B, P, g.dim) * wts[..., None]
         onehot = F.one_hot(seg.long(), len(g.slots)).float()
         combined = torch.einsum("blf,bld->bfd", onehot, weighted)

@@ -1,5 +1,5 @@
 """Joint Wide & Deep model (port of wide_deep_tpu/models/joint.py without
-the CNN arm and the FM term).
+the CNN arm).
 
 The model is a plain object; params and state live outside it as nested
 dicts of tensors whose top-level keys (``linear``, ``dnn``) are also the
@@ -46,6 +46,7 @@ class WideDeep:
     deep_spec: Optional[DeepSpec] = None
     model_type: str = "wide_deep"
     n_classes: int = 2
+    fm_factors: int = 0             # >0 adds the FM pairwise term (wide arm)
 
     def __post_init__(self):
         if self.model_type not in MODEL_TYPES:
@@ -59,6 +60,10 @@ class WideDeep:
                 "a folded FeaturePlan carries wide weights in the embedding "
                 "tables — model_type 'wide' has none; build the plan with "
                 "fold=False (plan.fold_enabled(config, model_type))")
+        if self.plan.fold and self.fm_factors:
+            raise ValueError(
+                "linear_fm_factors needs every wide slot in the id pool; "
+                "build the plan with fold=False")
         self.consts = PlanConstants(self.plan)
         self.n_logits = heads.n_logits_for(self.n_classes)
 
@@ -86,12 +91,17 @@ class WideDeep:
         params: Dict[str, Any] = {}
         state: Dict[str, Any] = {}
         if self.has_wide:
-            params["linear"] = init_linear_params(
-                self.plan, self.n_logits, device, with_fold=self.has_deep)
+            params["linear"] = None     # keeps the arms' key order
         if self.has_deep:
             params["dnn"], state["bn"] = init_deep_params(
                 gen, self.plan, self.consts, self.deep_spec, self.n_logits,
                 sample, device)
+        if self.has_wide:
+            # the FM factors are drawn after the deep arm, which so draws
+            # the same weights with and without them
+            params["linear"] = init_linear_params(
+                self.plan, self.n_logits, device, with_fold=self.has_deep,
+                fm_factors=self.fm_factors, gen=gen)
         return params, state
 
     def apply(self, params: Dict, state: Dict,
@@ -164,8 +174,6 @@ def build_model(config, plan: Optional[FeaturePlan] = None,
     model_type = model_type or config.train["model_type"]
     if model_conf.get("cnn_use_flag"):
         raise NotImplementedError("the CNN arm is not ported yet")
-    if int(model_conf.get("linear_fm_factors") or 0):
-        raise NotImplementedError("the FM term is not ported yet")
     if plan is None:
         plan = FeaturePlan(config, fold=fold_enabled(config, model_type))
     if dtype is None:
@@ -174,4 +182,5 @@ def build_model(config, plan: Optional[FeaturePlan] = None,
     if model_type != "wide":
         deep_spec = DeepSpec.from_model_conf(model_conf, dtype=dtype)
     return WideDeep(plan=plan, deep_spec=deep_spec, model_type=model_type,
-                    n_classes=n_classes)
+                    n_classes=n_classes,
+                    fm_factors=int(model_conf.get("linear_fm_factors") or 0))

@@ -1,5 +1,5 @@
 """Wide (linear) arm: one sparse-linear layer over the unified wide space
-(port of wide_deep_tpu/models/linear.py without the FM term).
+(port of wide_deep_tpu/models/linear.py).
 
 The plan packs every pooled wide column into one id space, so the arm is a
 single [wide_dim, n_logits] table: logit = sum_j w[id_j] * wt_j + b, plus the
@@ -8,11 +8,16 @@ rows for them.  Weights start at zero, which FTRL's sparsity relies on.  The
 pooled gather's backward (``GatherRows``) sums the rows of repeated ids in
 the same order on every call; on the card it runs K1, where the JAX
 package's gradient is XLA's scatter-add.
+
+Optional FM second-order term (``linear_fm_factors: k``): a [wide_dim, k]
+factor table ``v`` and 0.5 * sum_d((sum_i x_i v_id)^2 - sum_i x_i^2 v_id^2)
+over the active wide features (Rendle 2010), trained by the linear arm's
+optimizer.  Its pooled gather goes through ``GatherRows`` as ``w``'s does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -20,7 +25,12 @@ from wide_deep_tpu_torch.features.plan import FeaturePlan
 
 
 def init_linear_params(plan: FeaturePlan, n_logits: int, device,
-                       with_fold: bool = False) -> Dict[str, Any]:
+                       with_fold: bool = False, fm_factors: int = 0,
+                       gen: Optional[torch.Generator] = None
+                       ) -> Dict[str, Any]:
+    """Zero ``w``, ``b`` (and fold columns); with ``fm_factors`` k > 0 the
+    factor table ``v`` [wide_dim, k] float32, 0.01 * N(0, 1) drawn from
+    ``gen`` (the JAX package draws its own; tests carry it across)."""
     params: Dict[str, Any] = {
         "w": torch.zeros((plan.wide_dim, n_logits), dtype=torch.float32,
                          device=device),
@@ -34,6 +44,10 @@ def init_linear_params(plan: FeaturePlan, n_logits: int, device,
                 for g in plan.groups if g.folded}
         if fold:
             params["fold"] = fold
+    if fm_factors > 0:
+        params["v"] = torch.empty(
+            (plan.wide_dim, fm_factors), dtype=torch.float32,
+            device=device).normal_(generator=gen).mul_(0.01)
     return params
 
 
@@ -71,6 +85,27 @@ class GatherRows(torch.autograd.Function):
         return grad, None
 
 
+def _fm_term(v: torch.Tensor, batch: Dict[str, torch.Tensor],
+             consts) -> torch.Tensor:
+    """[B] pairwise-interaction term over the active wide features."""
+    ids = batch["wide_ids"]
+    B, L = ids.shape
+    gathered = GatherRows.apply(v, ids.reshape(-1)).reshape(B, L, -1)
+    wts = batch["wide_wts"][..., None]
+    s1 = (gathered * wts).sum(dim=1)                       # [B, k]
+    s2 = ((gathered ** 2) * (wts ** 2)).sum(dim=1)         # [B, k]
+    if consts is not None and consts.indicator_dim:
+        from wide_deep_tpu_torch.models.deep import indicator_block
+        ind = batch.get("_ind_block")
+        if ind is None:
+            ind = indicator_block(batch, consts.indicator_dim)
+        ind = ind.float()
+        v_ind = v.index_select(0, consts.wide_rows_on(v.device))  # [Di, k]
+        s1 = s1 + torch.matmul(ind, v_ind)
+        s2 = s2 + torch.matmul(ind ** 2, v_ind ** 2)
+    return 0.5 * (s1 ** 2 - s2).sum(dim=-1)
+
+
 def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                   consts=None) -> torch.Tensor:
     """[B, n_logits] wide logits: the pooled gather (hash/cross/bucketized
@@ -87,4 +122,6 @@ def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             ind = indicator_block(batch, consts.indicator_dim)
         out = out + torch.matmul(ind.float(), w.index_select(
             0, consts.wide_rows_on(w.device)))
+    if "v" in params:
+        out = out + _fm_term(params["v"], batch, consts)[:, None]
     return out + params["b"]

@@ -23,8 +23,10 @@ Beside each kernel sits its plain PyTorch version (``index_add_`` into
 float32 zeros, then one cast).  A wrapper takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  Each
 launch adds one to the module's counter (``range_launches``,
-``window_launches``; K1 also to ``range_launches_by_width``, keyed by the
-gradient's width D, which tells its call sites apart).  A window plan whose
+``window_launches``; K1 also to ``range_launches_by_shape``, keyed by its
+output's (rows, D), which tells its call sites apart in every
+configuration; ``range_launches_by_width()`` sums it by D, which tells the
+production step's sites apart).  A window plan whose
 ok flag is 0 (a window over its cap) is summed by K1 over the plan's sorted
 stream: ``window_ok0_launches`` counts those launches apart, and they count
 as K1's too.
@@ -56,7 +58,7 @@ WINDOW_SLAB_BYTES = 32 * 1024      # K2's shared-memory slab per block
 WINDOW_MIN_SUB_ROWS = 16           # K2's narrowest sub-window
 
 range_launches = 0         # K1 kernel launches
-range_launches_by_width: Dict[int, int] = {}   # the same, by D
+range_launches_by_shape: Dict[Tuple[int, int], int] = {}  # by (rows, D)
 window_launches = 0        # K2 kernel launches
 window_ok0_launches = 0    # K1 launches of apply_window_plan's ok=0 branch
 
@@ -378,7 +380,16 @@ def sorted_stream_sum(ids_sorted: torch.Tensor, perm: torch.Tensor,
              scratch.numel(), cuda_build.stream_handle(dev))
     cuda_build.check(err, "range_scatter_add")
     range_launches += 1
-    range_launches_by_width[d] = range_launches_by_width.get(d, 0) + 1
+    range_launches_by_shape[rows, d] = (
+        range_launches_by_shape.get((rows, d), 0) + 1)
+    return out
+
+
+def range_launches_by_width() -> Dict[int, int]:
+    """K1's launches by the gradient's width D."""
+    out: Dict[int, int] = {}
+    for (_, d), n in range_launches_by_shape.items():
+        out[d] = out.get(d, 0) + n
     return out
 
 

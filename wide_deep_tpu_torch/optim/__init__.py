@@ -1,17 +1,36 @@
-"""Optimizers: FTRL, Adagrad and ProximalAdagrad per arm, each with
-exponential LR decay (port of wide_deep_tpu/optim/__init__.py; the other
-optimizers wait).
+"""Optimizers: the seven of model.yaml (Ftrl, Adagrad, ProximalAdagrad,
+Adam, RMSProp, SGD, Momentum) per arm, each with exponential LR decay
+(port of wide_deep_tpu/optim/__init__.py).
 
 Semantics follow the JAX package exactly, not ``torch.optim``:
 
-* FTRL-Proximal, TF ApplyFtrl form (optim/__init__.py:52-95 there).
-* ProximalAdagrad, TF ApplyProximalAdagrad form (:104-142 there): the
-  accumulator starts at 0.1 rounded to the param's dtype and is kept in
-  float32, as the JAX package's is after its first update.
-* Adagrad as optax.adagrad: accumulator initialised to 0.1 in the param's
-  own dtype (bfloat16 for bfloat16 tables), ``n += g^2``,
-  ``w += (-lr) * g * rsqrt(n + 1e-7)``, every step in the param's dtype.
-* Each arm's decay runs on that arm's own step count.
+* FTRL-Proximal, TF ApplyFtrl form (optim/__init__.py:52-95 there), and
+  ProximalAdagrad, TF ApplyProximalAdagrad form (:104-142 there): their
+  slots are kept in float32, as the JAX package's are after its first
+  update, the accumulator starting at 0.1 rounded to the param's dtype.
+* The rest as optax 0.2.6 computes them (:172-187 there), every step in
+  the param's dtype (bfloat16 for bfloat16 tables and dense layers), each
+  Python constant rounded to that dtype first, as JAX's weak-typed
+  scalars are, and the learning rate cast to it before it scales:
+  - Adagrad (``scale_by_rss``): accumulator initialised to 0.1,
+    ``n += g^2``, ``w += (-lr) * g * rsqrt(n + 1e-7)``;
+  - Adam (``scale_by_adam``): ``mu`` and ``nu`` start at 0,
+    ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``, bias
+    corrections ``1 - b^(count+1)`` computed in float32 and cast,
+    ``w += (-lr) * (mu_hat / (sqrt(nu_hat) + eps))``;
+  - RMSProp (``scale_by_rms``, ``eps`` inside the root, initial scale 0):
+    ``nu = (1-d) g^2 + d nu``, ``u = (-lr) * (rsqrt(nu + eps) * g)``, then
+    with ``momentum > 0`` the ``trace`` ``t = u + m t``, ``u = t`` (optax
+    keeps a trace at momentum 0 too, where it is the identity);
+  - SGD: ``w += (-lr) * g``; Momentum (``trace(m)`` then the LR):
+    ``t = g + m t``, ``w += (-lr) * t``.
+* Each arm's decay and Adam's bias correction run on that arm's own step
+  count, read before it increments.
+* Adam, RMSProp, SGD and Momentum give the same bits on the card as on the
+  host: their roots are taken in float64 and rounded once, and they divide
+  by scalars held on the tensor's device (the card multiplies by the
+  reciprocal of a host scalar, and its float32 roots are not correctly
+  rounded).
 
 ``JointOptimizer`` partitions the param tree by its top-level arm key and
 updates in place; paths handled by the fused sparse optimizer
@@ -25,7 +44,8 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 import torch
 
 Schedule = Callable[[int], torch.Tensor]
-SUPPORTED = ("Ftrl", "Adagrad", "ProximalAdagrad")
+SUPPORTED = ("Adagrad", "Adam", "Ftrl", "RMSProp", "SGD", "Momentum",
+             "ProximalAdagrad")
 
 
 def exponential_decay(lr0: float, decay_rate: float,
@@ -67,13 +87,16 @@ def tree_set(tree, path, value):
     return out
 
 
-def _ftrl_(spec, lr, w, g, n, z):
-    """One FTRL step in place on (w, n, z)."""
+def _ftrl_(spec, lr, w, g, n, z, first: bool = False):
+    """One FTRL step in place on (w, n, z); n and z are float32.
+    ``first``: the arm's first step, where the JAX package's accumulator
+    still has the param's dtype, so its root is taken in that dtype."""
     l1 = spec.get("l1_regularization_strength", 0.0)
     l2 = spec.get("l2_regularization_strength", 0.0)
     g = g.float()
     n2 = n + g ** 2
-    z2 = z + g - (torch.sqrt(n2) - torch.sqrt(n)) / lr * w
+    root_n = torch.sqrt(n.to(w.dtype)).float() if first else torch.sqrt(n)
+    z2 = z + g - (torch.sqrt(n2) - root_n) / lr * w
     w_new = torch.where(torch.abs(z2) <= l1, torch.zeros_like(w),
                         (torch.sign(z2) * l1 - z2)
                         / (torch.sqrt(n2) / lr + 2 * l2))
@@ -103,6 +126,116 @@ def _adagrad_(lr, w, g, s, eps: float = 1e-7):
     w.copy_((w + u).to(w.dtype))
 
 
+def _const(x: float, dtype: torch.dtype) -> torch.Tensor:
+    """A Python constant as JAX's weak-typed scalar meets a ``dtype``
+    array: rounded to ``dtype`` first."""
+    return torch.tensor(x, dtype=dtype)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The square root correctly rounded to ``x``'s dtype, on the card as
+    on the host: taken in float64 and rounded once (the card's float32
+    root is not correctly rounded; a float64 root rounded to float32 or
+    bfloat16 is)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim ``t`` as a tensor on ``like``'s device, made by a fill: a
+    division by a host scalar runs on the card as a multiplication by its
+    reciprocal, which rounds otherwise than the host's division."""
+    return torch.full((), float(t), dtype=t.dtype, device=like.device)
+
+
+def _adam_(spec, lr, count: int, w, g, mu, nu):
+    """One optax Adam step in place on (w, mu, nu), in the param's dtype;
+    ``count``: the arm's count before this step."""
+    b1 = spec.get("beta1", 0.9)
+    b2 = spec.get("beta2", 0.999)
+    eps = spec.get("epsilon", 1e-8)
+    dt = mu.dtype
+    mu.copy_(_const(1 - b1, dt) * g + _const(b1, dt) * mu)
+    nu.copy_(_const(1 - b2, dt) * (g * g) + _const(b2, dt) * nu)
+    k = torch.tensor(float(count + 1), dtype=torch.float32)
+    bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** k
+    bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** k
+    u = ((mu / _on(bc1.to(dt), mu))
+         / (_sqrt(nu / _on(bc2.to(dt), nu)) + _const(eps, dt)))
+    w.copy_(w + (-lr).to(dt) * u)
+
+
+def _rmsprop_(spec, lr, w, g, nu, trace=None):
+    """One optax RMSProp step in place on (w, nu[, trace])."""
+    decay = spec.get("decay", 0.9)
+    eps = spec.get("epsilon", 1e-10)
+    dt = nu.dtype
+    nu.copy_(_const(1 - decay, dt) * (g * g) + _const(decay, dt) * nu)
+    # 1 / sqrt in float32 steps each correctly rounded, then rounded once
+    # to the param's dtype: the card's rsqrt is an approximation that the
+    # host's is not
+    inv = _sqrt((nu + _const(eps, dt)).float()).reciprocal().to(dt)
+    u = (-lr).to(dt) * (inv * g)
+    if trace is not None:
+        trace.copy_(u + _const(spec["momentum"], dt) * trace)
+        u = trace
+    w.copy_(w + u)
+
+
+def _sgd_(lr, w, g, trace=None, momentum: float = 0.0):
+    """One optax SGD step in place on w; with ``trace`` (Momentum) the
+    trace ``t = g + m t`` is the step's direction."""
+    if trace is not None:
+        trace.copy_(g + _const(momentum, trace.dtype) * trace)
+        g = trace
+    w.copy_(w + (-lr).to(g.dtype) * g)
+
+
+def slot_inits(spec) -> Dict[str, Tuple[float, Any]]:
+    """The per-leaf slots of an optimizer: {name: (initial value, dtype)},
+    dtype None meaning the param's own."""
+    name = spec["name"]
+    acc0 = spec.get("initial_accumulator_value", 0.1)
+    if name == "Ftrl":
+        return {"accum": (acc0, torch.float32),
+                "linear": (0.0, torch.float32)}
+    if name == "Adagrad":
+        return {"accum": (acc0, None)}
+    if name == "ProximalAdagrad":
+        return {"accum": (acc0, torch.float32)}
+    if name == "Adam":
+        return {"mu": (0.0, None), "nu": (0.0, None)}
+    if name == "RMSProp":
+        trace = {"trace": (0.0, None)} if spec.get("momentum", 0.0) else {}
+        return {"nu": (0.0, None), **trace}
+    if name == "Momentum":
+        return {"trace": (0.0, None)}
+    if name == "SGD":
+        return {}
+    raise ValueError(f"unknown optimizer `{name}`")
+
+
+def leaf_update_(spec, lr, count: int, w, g, slots: Dict[str, Any]) -> None:
+    """One step of optimizer ``spec`` on one leaf, in place on ``w`` and
+    its ``slots`` (``slot_inits``' names); ``lr`` is the arm's schedule at
+    ``count``, the arm's count before this step."""
+    name = spec["name"]
+    if name == "Ftrl":
+        _ftrl_(spec, lr, w, g, slots["accum"], slots["linear"],
+               first=count == 0)
+    elif name == "ProximalAdagrad":
+        _proximal_adagrad_(spec, lr, w, g, slots["accum"])
+    elif name == "Adagrad":
+        _adagrad_(lr, w, g, slots["accum"])
+    elif name == "Adam":
+        _adam_(spec, lr, count, w, g, slots["mu"], slots["nu"])
+    elif name == "RMSProp":
+        _rmsprop_(spec, lr, w, g, slots["nu"], slots.get("trace"))
+    elif name == "Momentum":
+        _sgd_(lr, w, g, slots["trace"], spec.get("momentum", 0.9))
+    else:
+        _sgd_(lr, w, g)
+
+
 class JointOptimizer:
     """Per-arm optimizers over one loss, partitioned by top-level key."""
 
@@ -114,9 +247,7 @@ class JointOptimizer:
                 continue
             spec = model_conf[f"{arm}_optimizer"]
             if spec["name"] not in SUPPORTED:
-                raise NotImplementedError(
-                    f"{spec['name']} is not ported yet (ported: "
-                    f"{SUPPORTED})")
+                raise ValueError(f"unknown optimizer `{spec['name']}`")
             lr0 = spec.get("learning_rate",
                            model_conf[f"{arm}_initial_learning_rate"])
             self.arms[arm] = (spec, exponential_decay(
@@ -133,17 +264,14 @@ class JointOptimizer:
     def init(self, params) -> Dict[str, Any]:
         state: Dict[str, Any] = {}
         for arm, (spec, _) in self.arms.items():
-            acc0 = spec.get("initial_accumulator_value", 0.1)
             leaves = self.leaves(params, arm)
-            accum_dtype = (torch.float32 if spec["name"] == "ProximalAdagrad"
-                           else None)
-            st = {"count": 0,
-                  "accum": {p: torch.full_like(t, acc0).detach().to(
-                                accum_dtype or t.dtype)
-                            for p, t in leaves}}
-            if spec["name"] == "Ftrl":
-                st["linear"] = {p: torch.zeros_like(t).detach()
-                                for p, t in leaves}
+            st: Dict[str, Any] = {"count": 0}
+            for slot, (value, dtype) in slot_inits(spec).items():
+                # the value is rounded to the param's dtype first, as
+                # optax's full_like does
+                st[slot] = {p: torch.full_like(t, value).detach().to(
+                                dtype or t.dtype)
+                            for p, t in leaves}
             state[arm] = st
         return state
 
@@ -155,15 +283,10 @@ class JointOptimizer:
         for arm, (spec, schedule) in self.arms.items():
             st = state[arm]
             lr = schedule(st["count"])
+            names = list(slot_inits(spec))
             for path, w in self.leaves(params, arm):
-                g = grads[path]
-                if spec["name"] == "Ftrl":
-                    _ftrl_(spec, lr, w, g, st["accum"][path],
-                           st["linear"][path])
-                elif spec["name"] == "ProximalAdagrad":
-                    _proximal_adagrad_(spec, lr, w, g, st["accum"][path])
-                else:
-                    _adagrad_(lr, w, g, st["accum"][path])
+                leaf_update_(spec, lr, st["count"], w, grads[path],
+                             {k: st[k][path] for k in names})
             st["count"] += 1
 
 

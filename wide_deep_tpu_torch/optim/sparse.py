@@ -1,5 +1,5 @@
-"""Fused touched-rows optimizer for huge embedding tables (port of
-wide_deep_tpu/optim/sparse.py's single-device fused path).
+"""Touched-rows optimizer updates for huge embedding tables (port of
+wide_deep_tpu/optim/sparse.py's single-device paths).
 
 Eligible tables (``plan.sparse_opt_group``: unfolded groups of at least
 SPARSE_MIN_ROWS rows; production: the 10,000,128-row d32 table) store the
@@ -17,17 +17,29 @@ optimizer.  Each step, per table (``apply_fused_update``):
    the sentinels.
 
 Untouched rows are never read or written (reference SparseApply* semantics).
+
+Tables built by hand with ``fused=False`` keep the param in its own
+layout and the optimizer slots in their state (``init_table_state``):
+``apply_compact_update`` takes the same compact per-entry gradient and
+plan (K1 sums it, the formula runs on the gathered rows, the changes are
+added back at the sorted unique uids), ``apply_sparse_update`` a dense
+per-row-summed gradient and the raw batch ids.  ``plan_sparse_tables``
+makes fused tables only, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from wide_deep_tpu_torch.optim import (Schedule, exponential_decay,
                                       tree_get, tree_set)
+
+# the compact plan's keys (ops/scatter.make_compact_plan) a sparse update
+# takes: the batch carries each as ``sopt_<key>_d<dim>``
+PLAN_KEYS = ("uids", "ids", "perm", "tiles")
 
 SPARSE_MIN_ROWS = 1 << 22      # smaller tables sweep densely
 SPARSE_CAPABLE = ("Adagrad", "ProximalAdagrad", "Ftrl", "SGD")
@@ -42,10 +54,15 @@ class SparseTable:
     path: Tuple[Any, ...]          # param tree path ("dnn", "embed", "d32")
     ids_key: str                   # batch key holding [B, P] ids
     spec: Dict[str, Any]           # optimizer spec
-    lr: Schedule
+    lr: Union[Schedule, float]     # a schedule, or a constant rate
     dim: int = 0                   # embedding columns
-    fused: bool = True             # param stored as float32 [rows, 128]
+    fused: bool = False            # param stored as float32 [rows, 128]
     sink_dtype: Any = None         # dtype of the gathered-rows gradient
+
+
+def _lr_at(lr, count: int) -> torch.Tensor:
+    return (lr(count) if callable(lr)
+            else torch.tensor(lr, dtype=torch.float32))
 
 
 def _n_slots(spec: Dict[str, Any]) -> int:
@@ -80,7 +97,7 @@ def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
             out[name] = SparseTable(
                 name=name, path=("dnn", "embed", f"d{g.dim}"),
                 ids_key=f"emb_ids_d{g.dim}", spec=spec, lr=schedule,
-                dim=g.dim, sink_dtype=sink_dtype)
+                dim=g.dim, fused=True, sink_dtype=sink_dtype)
     return out, frozenset(t.path for t in out.values())
 
 
@@ -130,10 +147,22 @@ def expand_fused_ckpt(params, sparse_tables: Dict[str, SparseTable], like):
     return params
 
 
-def init_table_state(table: SparseTable) -> Dict[str, Any]:
-    """A fused table's slots live in its param matrix: the state is its
-    step count."""
-    return {"count": 0}
+def init_table_state(table: SparseTable,
+                     param: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """A table's optimizer state: its step count, and for a table that is
+    not fused its slots, as the dense optimizers make them (``accum`` at
+    the initial accumulator value, ``linear`` zero, in the param's dtype).
+    A fused table's slots live in its param matrix."""
+    st: Dict[str, Any] = {"count": 0}
+    if table.fused:
+        return st
+    name = table.spec["name"]
+    if name in ("Adagrad", "ProximalAdagrad", "Ftrl"):
+        st["accum"] = torch.full_like(
+            param, table.spec.get("initial_accumulator_value", 0.1))
+    if name == "Ftrl":
+        st["linear"] = torch.zeros_like(param)
+    return st
 
 
 @torch.no_grad()
@@ -207,7 +236,7 @@ def apply_fused_update(table: SparseTable, fused: torch.Tensor,
     columns are written back unchanged."""
     from wide_deep_tpu_torch.ops.rowdma import rowdma_scatter_rows
     from wide_deep_tpu_torch.ops.scatter import range_scatter_add
-    lr = table.lr(state["count"])
+    lr = _lr_at(table.lr, state["count"])
     n, d = row_grads.shape
     g_unique = range_scatter_add(plan["ids"], plan["perm"],
                                  row_grads.float().contiguous(),
@@ -226,3 +255,60 @@ def apply_fused_update(table: SparseTable, fused: torch.Tensor,
     rowdma_scatter_rows(fused, uids, new_full)
     state["count"] += 1
     return fused
+
+
+@torch.no_grad()
+def apply_sparse_update(table: SparseTable, param: torch.Tensor,
+                        grad: torch.Tensor, ids: torch.Tensor,
+                        state: Dict[str, Any]) -> torch.Tensor:
+    """Touched-rows update of a table that is not fused, in place, from its
+    dense gradient ``grad`` (already summed per row) and the raw batch
+    ``ids`` (duplicates allowed: each duplicate computes the same new
+    values, so the writes agree)."""
+    lr = _lr_at(table.lr, state["count"])
+    ids = ids.reshape(-1).long()
+    g = grad.index_select(0, ids).float()
+    w = param.index_select(0, ids).float()
+    slots = {k: state[k].index_select(0, ids).float()
+             for k in _SLOT_KEYS if k in state}
+    w_new, new_rows = _row_update(table.spec, lr, w, g, slots)
+    for k, rows in new_rows.items():
+        state[k].index_copy_(0, ids, rows.to(state[k].dtype))
+    param.index_copy_(0, ids, w_new.to(param.dtype))
+    state["count"] += 1
+    return param
+
+
+@torch.no_grad()
+def apply_compact_update(table: SparseTable, param: torch.Tensor,
+                         row_grads: torch.Tensor,
+                         plan: Dict[str, torch.Tensor],
+                         state: Dict[str, Any]) -> torch.Tensor:
+    """Touched-rows update of a table that is not fused, in place, from the
+    compact per-entry gradient ``row_grads`` [N, D] and the batch's compact
+    plan: K1 (ops/scatter.range_scatter_add) sums duplicates into one
+    float32 row per unique id, the formula runs on the gathered rows, and
+    each row's change (new - old, in the slot's or param's dtype) is added
+    back at the sorted unique uids, as the JAX package writes it.  The
+    sentinel uids past the table's rows are dropped."""
+    from wide_deep_tpu_torch.ops.scatter import range_scatter_add
+    lr = _lr_at(table.lr, state["count"])
+    n, d = row_grads.shape
+    g_unique = range_scatter_add(plan["ids"], plan["perm"],
+                                 row_grads.float().contiguous(),
+                                 plan["tiles"], n, torch.float32)
+    uids = plan["uids"]
+    rows = param.shape[0]
+    safe = torch.clamp(uids, 0, rows - 1).long()
+    w = param.index_select(0, safe).float()
+    slots = {k: state[k].index_select(0, safe).float()
+             for k in _SLOT_KEYS if k in state}
+    w_new, new_rows = _row_update(table.spec, lr, w, g_unique, slots)
+    live = (uids >= 0) & (uids < rows)
+    at = safe[live]
+    for k, vals in new_rows.items():
+        state[k].index_add_(0, at, (vals - slots[k]).to(
+            state[k].dtype)[live])
+    param.index_add_(0, at, (w_new - w).to(param.dtype)[live])
+    state["count"] += 1
+    return param

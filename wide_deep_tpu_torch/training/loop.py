@@ -1,11 +1,12 @@
 """Trainer: the single-device training loop (the port of
-wide_deep_tpu/training/loop.py without the multi-device, stream and CNN
-paths), after the reference's entry-point loops (python/train.py:65-170,
+wide_deep_tpu/training/loop.py without the multi-device and CNN paths),
+after the reference's entry-point loops (python/train.py:65-170,
 eval.py:56-83, pred.py:52-74):
 
 * ``train_and_eval``: per epoch, per train file: train, then evaluate the
   eval data; the test data every ``epochs_per_eval`` epochs;
 * ``dynamic_train``: rolling window, train on file[i], test on file[i+1];
+* ``train_stream``: a live TSV stream over TCP (features/stream.py);
 * ``train``, ``evaluate`` and ``predict`` one-shots.
 
 ``train_file`` runs the loader and the host-to-device copy in threads
@@ -389,6 +390,34 @@ class Trainer:
                 self._write_eval_summaries(res)
         log.info("finished %s in %.1f s (step %d)", os.path.basename(path),
                  time.time() - t0, self.global_step)
+        return float("nan") if loss is None else float(loss)
+
+    def train_stream(self, host: str, port: int,
+                     max_batches: Optional[int] = None,
+                     flush_timeout_s: float = 1.0,
+                     reconnect: bool = False,
+                     max_retries: int = 30) -> float:
+        """Train on a live TSV stream (features/stream.StreamDataset):
+        batches in arrival order, a partial batch after ``flush_timeout_s``
+        of idleness, each through ``_to_device`` and the step, with the
+        configured checkpoint cadence.  Returns the last batch loss; the
+        stream ending (the producer closed, or with ``reconnect`` every
+        retry spent) returns normally."""
+        from wide_deep_tpu_torch.features.stream import StreamDataset
+        self.ensure_initialized()
+        ds = StreamDataset(
+            self.plan, host, port, mode="train", batch_size=self.batch_size,
+            n_classes=self.n_classes, pos_weight=self.pos_weight,
+            neg_weight=self.neg_weight, flush_timeout_s=flush_timeout_s,
+            max_batches=max_batches, transformer=self.transformer,
+            reconnect=reconnect, max_retries=max_retries)
+        loss = None
+        for batch in ds:
+            loss = self.train_batch(self._to_device(batch))
+            if self._ckpt.should_save(self.global_step):
+                self._ckpt.save(self.global_step, self._ckpt_tree())
+        log.info("stream ended after %d rows (step %d)", ds.rows_seen,
+                 self.global_step)
         return float("nan") if loss is None else float(loss)
 
     def save(self, force: bool = True):

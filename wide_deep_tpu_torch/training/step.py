@@ -1,13 +1,23 @@
-"""The single-device train step (port of the non-deferred single-device
-path of wide_deep_tpu/training/step.py), and the eval and predict steps.
+"""The single-device train step (port of the single-device paths of
+wide_deep_tpu/training/step.py, the deferred sparse update and its flush
+included), and the eval and predict steps.
 
 One step: forward + loss, gradients by autograd, the dense per-arm update
-(FTRL for ``linear`` including the fold columns, Adagrad for ``dnn``), then
-the fused touched-rows update of each sparse table.  Sparse tables are
+(optim.JointOptimizer), then the touched-rows update of each sparse table.
+A sparse table whose batch carries its compact plan (``sopt_*``) is
 gathered detached in the forward; the gradient reaches the gathered rows
 (the "sinks", leaf tensors made by models/deep.py), which is the compact
-per-entry gradient optim/sparse.apply_fused_update consumes with the batch's
-``sopt_*`` plan.  Params, BN state and optimizer state are updated in place.
+per-entry gradient optim/sparse.apply_fused_update (fused tables) or
+apply_compact_update (tables built unfused by hand) consumes with the plan.
+An unfused table without a plan gets its dense gradient, which
+apply_sparse_update reads at the batch's ids.  Params, BN state and
+optimizer state are updated in place.
+
+``defer_sparse`` moves the fused update one step later: a step first
+applies the update the previous step left in ``opt_state
+["sparse_pending"]`` and leaves its own there.  The forward sees the same
+tables either way; ``flush_step`` applies what is pending, and must run
+before an evaluation, a checkpoint or an export reads the tables.
 """
 
 from __future__ import annotations
@@ -20,36 +30,59 @@ from wide_deep_tpu_torch import metrics as metrics_lib
 from wide_deep_tpu_torch.models.joint import WideDeep
 from wide_deep_tpu_torch.optim import JointOptimizer, tree_get, tree_items
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
+from wide_deep_tpu_torch.optim.sparse import PLAN_KEYS
 
 
 def init_opt_state(tx: JointOptimizer, params,
                    sparse_tables: Optional[Dict[str, Any]] = None):
     return {"dense": tx.init(params),
-            "sparse": {name: sparse_lib.init_table_state(t)
+            "sparse": {name: sparse_lib.init_table_state(
+                           t, tree_get(params, t.path))
                        for name, t in (sparse_tables or {}).items()}}
+
+
+def _apply_pending(sparse_tables, params, opt_state) -> None:
+    """Apply each fused table's pending update (``opt_state
+    ["sparse_pending"][name]``: its gradient rows ``rg`` and plan)."""
+    pending = opt_state["sparse_pending"]
+    for name, t in sparse_tables.items():
+        if not t.fused:
+            raise ValueError(f"{name}: defer_sparse takes fused tables only")
+        p = pending[name]
+        sparse_lib.apply_fused_update(
+            t, tree_get(params, t.path), p["rg"],
+            {k: p[k] for k in PLAN_KEYS}, opt_state["sparse"][name])
 
 
 def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
                opt_state, batch: Dict[str, torch.Tensor],
                sparse_tables: Optional[Dict[str, Any]] = None,
                rng: Optional[torch.Generator] = None,
-               with_summaries: bool = False):
+               with_summaries: bool = False, defer_sparse: bool = False):
     """One training step -> (new BN state, loss), plus with
     ``with_summaries`` the per-layer activation stats {tag: scalar tensor}
-    (zero fraction, mean, std); params and opt_state change in place."""
+    (zero fraction, mean, std); params and opt_state change in place.
+    ``defer_sparse``: see the module docstring; ``opt_state`` must then
+    hold ``sparse_pending``."""
     sparse_tables = sparse_tables or {}
-    sparse_paths = {t.path for t in sparse_tables.values()}
-    leaves = [(p, t) for p, t in tree_items(params) if p not in sparse_paths]
+    compact = {name: t for name, t in sparse_tables.items()
+               if f"sopt_uids_{t.path[-1]}" in batch}
+    for name, t in sparse_tables.items():
+        if (t.fused or defer_sparse) and name not in compact:
+            raise ValueError(f"{name}: fused tables need the batch's "
+                             f"compact plan (sopt_*_{t.path[-1]})")
+    if defer_sparse:
+        _apply_pending(sparse_tables, params, opt_state)
+    # unfused tables without a plan take their dense gradient
+    sink_paths = {t.path for t in compact.values()}
+    leaves = [(p, t) for p, t in tree_items(params) if p not in sink_paths]
     for _, t in leaves:
         t.requires_grad_(True)
-    for t in sparse_tables.values():
-        if f"sopt_uids_{t.path[-1]}" not in batch:
-            raise ValueError(f"{t.name}: fused tables need the batch's "
-                             f"compact plan (sopt_*_{t.path[-1]})")
-    sinks: Dict[str, torch.Tensor] = {}
+    sinks: Dict[str, Optional[torch.Tensor]] = {
+        t.path[-1]: None for t in compact.values()}
     loss, aux = model.loss_fn(
-        params, mstate, batch, True, rng, sinks=sinks if sparse_tables
-        else None, collect_summaries=with_summaries)
+        params, mstate, batch, True, rng, sinks=sinks if sinks else None,
+        collect_summaries=with_summaries)
     new_mstate = aux[0]
     sink_items = sorted(sinks.items())
     grads = torch.autograd.grad(
@@ -59,16 +92,57 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
                    for (p, t), g in zip(leaves, grads)}
     sink_grads = dict(zip((k for k, _ in sink_items), grads[len(leaves):]))
     tx.update_(params, dense_grads, opt_state["dense"])
-    for name, t in sparse_tables.items():
+    if defer_sparse:
+        # this step's update waits for the next step; its plan is cloned,
+        # since the batch's device buffer is handed out again
+        opt_state["sparse_pending"] = {
+            name: {"rg": sink_grads[t.path[-1]],
+                   **{k: batch[f"sopt_{k}_{t.path[-1]}"].clone()
+                      for k in PLAN_KEYS}}
+            for name, t in sparse_tables.items()}
+    for name, t in ({} if defer_sparse else sparse_tables).items():
         key = t.path[-1]
-        rg = sink_grads[key]
-        plan = {k: batch[f"sopt_{k}_{key}"]
-                for k in ("uids", "ids", "perm", "tiles")}
-        sparse_lib.apply_fused_update(t, tree_get(params, t.path), rg,
-                                      plan, opt_state["sparse"][name])
+        param = tree_get(params, t.path)
+        st = opt_state["sparse"][name]
+        if name in compact:
+            plan = {k: batch[f"sopt_{k}_{key}"] for k in PLAN_KEYS}
+            apply = (sparse_lib.apply_fused_update if t.fused
+                     else sparse_lib.apply_compact_update)
+            apply(t, param, sink_grads[key], plan, st)
+        else:
+            sparse_lib.apply_sparse_update(t, param, dense_grads[t.path],
+                                           batch[t.ids_key], st)
     if with_summaries:
         return new_mstate, loss.detach(), aux[3]
     return new_mstate, loss.detach()
+
+
+def seed_pending(sparse_tables: Dict[str, Any], opt_state,
+                 batch: Dict[str, torch.Tensor]) -> None:
+    """Start a ``defer_sparse`` run: for each fused table a pending update
+    of ``batch``'s plan with zero gradients, and its count one lower (-1
+    from a fresh initialisation), since applying the seed ticks it; step k's
+    gradients then apply at the count an immediate run applies them at."""
+    opt_state["sparse_pending"] = {}
+    for name, t in sparse_tables.items():
+        key = t.path[-1]
+        opt_state["sparse"][name]["count"] -= 1
+        opt_state["sparse_pending"][name] = {
+            "rg": torch.zeros((batch[t.ids_key].numel(), t.dim),
+                              dtype=t.sink_dtype,
+                              device=batch[t.ids_key].device),
+            **{k: batch[f"sopt_{k}_{key}"].clone() for k in PLAN_KEYS}}
+
+
+@torch.no_grad()
+def flush_step(sparse_tables: Dict[str, Any], params, opt_state) -> None:
+    """Apply the pending fused updates of a ``defer_sparse`` run, in place,
+    so the tables hold every step trained.  The pending entries keep their
+    plans with zero gradients: a later step's apply of them leaves the
+    weights as they are (it still ticks each table's count)."""
+    _apply_pending(sparse_tables, params, opt_state)
+    for p in opt_state["sparse_pending"].values():
+        p["rg"] = torch.zeros_like(p["rg"])
 
 
 @torch.no_grad()
