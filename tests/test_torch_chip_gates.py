@@ -1,0 +1,36 @@
+"""The port's serving SLO gate on the card, opted into as
+tests/test_chip_gates.py's gates are:
+
+    WDT_RUN_CHIP_GATES=1 python -m pytest tests/test_torch_chip_gates.py -q
+
+It runs ``python -m wide_deep_tpu_torch.tools.serving_slo check`` against
+the card's committed budget, serving_slo_torch.json (p99 within 30% + 1 ms
+of the budget's, rows/s within 30% of it, both transports where the grpc
+package imports).  Event times spread up to 2x between runs on a shared
+host, so chip_smoke.py measures and prints and does not gate.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from paths import REPO  # noqa: E402
+
+pytestmark = [pytest.mark.slow, pytest.mark.cuda]
+
+
+def test_torch_serving_slo_gate():
+    if os.environ.get("WDT_RUN_CHIP_GATES") != "1":
+        pytest.skip("the serving SLO gate needs the card; set "
+                    "WDT_RUN_CHIP_GATES=1 on a host with one")
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = subprocess.run(
+        [sys.executable, "-m", "wide_deep_tpu_torch.tools.serving_slo",
+         "check"],
+        capture_output=True, text=True, timeout=1800, cwd=REPO)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]

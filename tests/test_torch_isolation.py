@@ -192,3 +192,51 @@ def test_defer_experiment_needs_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         experiment_defer_sparse.main([])
+
+
+TOOL_MODULES = ("wide_deep_tpu_torch.tools.tls_proxy",
+                "wide_deep_tpu_torch.tools.serving_slo",
+                "wide_deep_tpu_torch.tools.quality_onchip",
+                "wide_deep_tpu_torch.tools.quality_matrix",
+                "wide_deep_tpu_torch.tools.pack_budget_curve")
+
+
+def test_quality_and_serving_tools_stand_alone():
+    """The TLS proxy, the SLO tool and the three quality tools are the
+    port's own files (scanned by the tests above; the proxy is a copy of
+    tools/tls_proxy.py, not an import of it), and importing them loads
+    neither JAX nor the JAX package nor tools/."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in TOOL_MODULES:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in TOOL_MODULES)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'optax', 'wide_deep_tpu', 'tools', "
+              "'tls_proxy', 'serving_slo', 'quality_matrix')]\n"
+              "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("serving_slo", ["check"]),
+    ("quality_onchip", ["--part", "B"]),
+    ("quality_matrix", ["--only", "wide"]),
+    ("pack_budget_curve", ["--budgets", "1"]),
+])
+def test_quality_and_slo_tools_need_cuda_unless_cpu_is_asked(
+        monkeypatch, tmp_path, tool, argv):
+    """Without a card the tools raise naming CUDA before they read,
+    generate or train anything."""
+    import importlib
+    mod = importlib.import_module(f"wide_deep_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    extra = (["--work_dir", str(tmp_path / "w")]
+             if tool == "quality_matrix" else [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv + extra)
+    assert os.listdir(tmp_path) == []

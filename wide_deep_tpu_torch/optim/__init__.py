@@ -26,11 +26,12 @@ Semantics follow the JAX package exactly, not ``torch.optim``:
     ``t = g + m t``, ``w += (-lr) * t``.
 * Each arm's decay and Adam's bias correction run on that arm's own step
   count, read before it increments.
-* Adam, RMSProp, SGD and Momentum give the same bits on the card as on the
-  host: their roots are taken in float64 and rounded once, and they divide
-  by scalars held on the tensor's device (the card multiplies by the
-  reciprocal of a host scalar, and its float32 roots are not correctly
-  rounded).
+* Every optimizer gives the same bits on the card as on the host: roots
+  are taken in float64 and rounded once (``_sqrt``; ``_rsqrt`` is the
+  reciprocal of that root), and divisions by a scalar divide by a scalar
+  held on the tensor's device (``_on``): the card multiplies by the
+  reciprocal of a host scalar, and neither its float32 root nor its
+  rsqrt is correctly rounded.
 
 ``JointOptimizer`` partitions the param tree by its top-level arm key and
 updates in place; paths handled by the fused sparse optimizer
@@ -93,13 +94,15 @@ def _ftrl_(spec, lr, w, g, n, z, first: bool = False):
     still has the param's dtype, so its root is taken in that dtype."""
     l1 = spec.get("l1_regularization_strength", 0.0)
     l2 = spec.get("l2_regularization_strength", 0.0)
+    lr = _on(lr, w)
     g = g.float()
     n2 = n + g ** 2
-    root_n = torch.sqrt(n.to(w.dtype)).float() if first else torch.sqrt(n)
-    z2 = z + g - (torch.sqrt(n2) - root_n) / lr * w
+    root_n2 = _sqrt(n2)
+    root_n = _sqrt(n.to(w.dtype)).float() if first else _sqrt(n)
+    z2 = z + g - (root_n2 - root_n) / lr * w
     w_new = torch.where(torch.abs(z2) <= l1, torch.zeros_like(w),
                         (torch.sign(z2) * l1 - z2)
-                        / (torch.sqrt(n2) / lr + 2 * l2))
+                        / (root_n2 / lr + 2 * l2))
     w.add_((w_new - w).to(w.dtype))
     n.copy_(n2)
     z.copy_(z2)
@@ -111,7 +114,7 @@ def _proximal_adagrad_(spec, lr, w, g, n):
     l2 = spec.get("l2_regularization_strength", 0.0)
     g = g.float()
     n.add_(g * g)
-    adj = lr * torch.rsqrt(n)
+    adj = lr * _rsqrt(n)
     prox = w - adj * g
     w_new = (torch.sign(prox) * torch.clamp(torch.abs(prox) - adj * l1,
                                             min=0.0) / (1.0 + adj * l2))
@@ -121,7 +124,7 @@ def _proximal_adagrad_(spec, lr, w, g, n):
 def _adagrad_(lr, w, g, s, eps: float = 1e-7):
     """One optax Adagrad step in place on (w, s), in the param's dtype."""
     s.copy_(g * g + s)
-    inv = torch.where(s > 0, torch.rsqrt(s + eps), torch.zeros_like(s))
+    inv = torch.where(s > 0, _rsqrt(s + eps), torch.zeros_like(s))
     u = (-lr).to(g.dtype) * (inv * g)
     w.copy_((w + u).to(w.dtype))
 
@@ -134,10 +137,18 @@ def _const(x: float, dtype: torch.dtype) -> torch.Tensor:
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """The square root correctly rounded to ``x``'s dtype, on the card as
-    on the host: taken in float64 and rounded once (the card's float32
-    root is not correctly rounded; a float64 root rounded to float32 or
-    bfloat16 is)."""
+    on the host: taken in float64 and rounded once (neither the card's
+    float32 root nor torch's vectorized host one is correctly rounded; a
+    float64 root rounded to float32 or bfloat16 is)."""
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``torch.rsqrt`` as the host computes it for float32, on the card as
+    on the host: the root taken in float64 and rounded once to float32
+    (for a bfloat16 ``x`` too), its reciprocal correctly rounded, then
+    rounded to ``x``'s dtype (the card's rsqrt is an approximation)."""
+    return torch.sqrt(x.double()).float().reciprocal().to(x.dtype)
 
 
 def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -170,10 +181,7 @@ def _rmsprop_(spec, lr, w, g, nu, trace=None):
     eps = spec.get("epsilon", 1e-10)
     dt = nu.dtype
     nu.copy_(_const(1 - decay, dt) * (g * g) + _const(decay, dt) * nu)
-    # 1 / sqrt in float32 steps each correctly rounded, then rounded once
-    # to the param's dtype: the card's rsqrt is an approximation that the
-    # host's is not
-    inv = _sqrt((nu + _const(eps, dt)).float()).reciprocal().to(dt)
+    inv = _rsqrt(nu + _const(eps, dt))
     u = (-lr).to(dt) * (inv * g)
     if trace is not None:
         trace.copy_(u + _const(spec["momentum"], dt) * trace)

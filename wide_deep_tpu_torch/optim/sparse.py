@@ -34,8 +34,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from wide_deep_tpu_torch.optim import (Schedule, exponential_decay,
-                                      tree_get, tree_set)
+from wide_deep_tpu_torch.optim import (Schedule, _on, _rsqrt, _sqrt,
+                                      exponential_decay, tree_get, tree_set)
 
 # the compact plan's keys (ops/scatter.make_compact_plan) a sparse update
 # takes: the batch carries each as ``sopt_<key>_d<dim>``
@@ -183,20 +183,22 @@ def _row_update(spec: Dict[str, Any], lr, w: torch.Tensor, g: torch.Tensor,
                 slots: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimizer step on float32 row slices: (w, g, slots) -> (w',
-    slots'), the formulas of the dense optimizers."""
+    slots'), the formulas of the dense optimizers, with their roots and
+    divisions (``_sqrt``, ``_rsqrt``, ``_on``), so the card's rows get
+    the host's bits."""
     name = spec["name"]
     new_slots: Dict[str, torch.Tensor] = {}
     if name == "SGD":
         w_new = w - lr * g
     elif name == "Adagrad":
         n2 = slots["accum"] + g * g
-        w_new = w - lr * g * torch.rsqrt(n2 + 1e-7)
+        w_new = w - lr * g * _rsqrt(n2 + 1e-7)
         new_slots["accum"] = n2
     elif name == "ProximalAdagrad":
         l1 = spec.get("l1_regularization_strength", 0.0)
         l2 = spec.get("l2_regularization_strength", 0.0)
         n2 = slots["accum"] + g * g
-        adj = lr * torch.rsqrt(n2)
+        adj = lr * _rsqrt(n2)
         prox = w - adj * g
         w_new = (torch.sign(prox)
                  * torch.clamp(torch.abs(prox) - adj * l1, min=0.0)
@@ -209,12 +211,14 @@ def _row_update(spec: Dict[str, Any], lr, w: torch.Tensor, g: torch.Tensor,
     elif name == "Ftrl":
         l1 = spec.get("l1_regularization_strength", 0.0)
         l2 = spec.get("l2_regularization_strength", 0.0)
+        lr = _on(lr, w)
         n = slots["accum"]
         n2 = n + g * g
-        z2 = slots["linear"] + g - (torch.sqrt(n2) - torch.sqrt(n)) / lr * w
+        root_n2 = _sqrt(n2)
+        z2 = slots["linear"] + g - (root_n2 - _sqrt(n)) / lr * w
         w_new = torch.where(torch.abs(z2) <= l1, torch.zeros_like(w),
                             (torch.sign(z2) * l1 - z2)
-                            / (torch.sqrt(n2) / lr + 2 * l2))
+                            / (root_n2 / lr + 2 * l2))
         new_slots["accum"] = n2
         new_slots["linear"] = z2
     else:
