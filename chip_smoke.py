@@ -139,7 +139,38 @@ each on stdout:
    (``SITES_QUALITY``); then
    ``tools.quality_matrix.main`` on two variants at 200,000 rows, every
    step's launches read (``SITES_MATRIX``), AUC > 0.70;
-then one JSON line describing the kernels, and the device line.
+10. the CNN arm, each Trainer on a copy of conf/ (``conf_copy``) with
+    ``cnn_use_flag: 1``, batch 64, over data/train's rows paired by index
+    with data/image/train.tfrecords, freed before the next, every step's
+    launches read against ``SITES_QUALITY["wide_deep"]`` (K1 wide, K1 d32
+    compact and K3 once each):
+    a. VGG16 (conf/'s ``cnn_model``, Adagrad lr 0.05, decay 0.8): 20
+       ``train_file`` steps, finite losses, every ``cnn`` leaf changed at
+       step 0, step 0's update replayed on the host (``recorded_update``:
+       0 ulp), step 0's K1 and K3 launches held against their plain
+       versions on the same inputs (``held_to_plain``: K1 at the wide
+       gather and at the d32 compact sum, K3's write of the touched rows),
+       the median step ms between CUDA events and images/s; the
+       image assembly's host ms a batch; a profiler window (device ms a
+       step, the convolutions' device ms and share, the top kernels, the
+       port's kernels, one host-to-device copy a step); the arm's forward
+       + backward twice on one batch of 64 (the same bits), and at batch
+       2 against the port on the host in float32 and float64
+       (``testing.cnn_disagreement``, the CPU tests' tolerances); a
+       checkpoint restored into a new Trainer bit for bit; ``evaluate``
+       over data/eval with no launch; ``tools.train.main`` (2 steps),
+       ``tools.eval.main`` and ``tools.export.main`` with the
+       ``--image_*_data`` flags, the bundle holding every ``cnn`` leaf;
+    b. ResNet-50 v2 (``cnn_model: resnet``, size 50): 5 steps, step 0's
+       K1 and K3 launches held against their plain versions, final_bn's
+       running stats after step 0 against the host's ``0.99 old + 0.01
+       batch`` (population variance), the profile, an eval forward from the
+       running stats against the host's, the double call and the card vs
+       host check, ``evaluate``;
+    c. data/image/train.tfrecords read (crc checked) and written back by
+       the port's codec: the same bytes, PIL not loaded;
+then one JSON line describing the kernels (with each row's launches on the
+CLI path and on the CNN path), and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -2276,6 +2307,523 @@ def phase_quality(card, tmp):
     return {"part_b": rows, "matrix": res}
 
 
+# ----------------------------------------------------------------- phase 10
+# the CNN arm: conf/ as shipped with cnn_use_flag 1 (VGG16 at 224 x 224 x 3,
+# its own Adagrad, lr 0.05, decay 0.8), then ResNet-50 v2, at batch 64 over
+# data/train's rows paired by index with data/image/train.tfrecords
+CNN_BATCH = 64
+CNN_VGG_STEPS = 20
+CNN_RESNET_STEPS = 5
+CNN_CLI_ROWS = 2 * CNN_BATCH
+CNN_TRAIN = os.path.join(ROOT, "data", "train")
+CNN_EVAL = os.path.join(ROOT, "data", "eval")
+CNN_IMAGES = os.path.join(ROOT, "data", "image", "train.tfrecords")
+# the profiler's CPU-side ops whose device time is the convolutions'
+CONV_OPS = ("aten::convolution", "aten::convolution_backward")
+# ResNet-50 v2 forward ~4.1 GFLOP an image at 224 x 224, VGG16 ~15.5;
+# forward + backward ~3x (float32, TF32 off: the 67 TFLOP/s rate)
+CNN_FWD_FLOP = {"vgg16": 15.5e9, "resnet": 4.1e9}
+
+
+def cnn_trainer(config, model_dir, restore=False):
+    """A Trainer at batch 64 over data/train and data/eval with the
+    TFRecord's images, initialised (and with ``restore`` restored)."""
+    from wide_deep_tpu_torch.training.loop import Trainer
+    tr = Trainer(config, "wide_deep", model_dir=model_dir,
+                 overrides=dict(
+                     batch_size=CNN_BATCH, keep_train=True,
+                     num_examples=4000, train_data=CNN_TRAIN,
+                     eval_data=CNN_EVAL, test_data=CNN_EVAL,
+                     image_train_data=CNN_IMAGES,
+                     image_eval_data=CNN_IMAGES,
+                     image_test_data=CNN_IMAGES), device="cuda")
+    tr.ensure_initialized(restore=restore)
+    return tr
+
+
+def held_to_plain(tr, what):
+    """Wrap K1 (``ops/scatter.sorted_stream_sum``, which ``range_scatter_add``
+    calls) and K3 (``ops/rowdma.rowdma_scatter_rows``) for one step: each
+    launch is held on the card against its plain version on the same
+    inputs, K1 within 1e-6 of the row's sum of |g| + 1e-6 (float32 sums in
+    another order; one bfloat16 ulp more for a bfloat16 output), K3 exact
+    on a copy of the table.  -> a function, to call after the step, that
+    logs each launch by site, checks that the sites are
+    ``SITES_QUALITY["wide_deep"]``'s and restores the wrappers; exits
+    non-zero on a mismatch."""
+    import torch
+
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    k1, k3 = scatter.sorted_stream_sum, rowdma.rowdma_scatter_rows
+    names, seen = site_names(tr, CNN_BATCH), []
+
+    def k1_held(ids_sorted, perm, g_flat, rows, out_dtype):
+        want = scatter.range_scatter_add_plain(ids_sorted, perm, g_flat,
+                                               rows, torch.float32)
+        mag = scatter.range_scatter_add_plain(ids_sorted, perm, g_flat.abs(),
+                                              rows, torch.float32)
+        got = k1(ids_sorted, perm, g_flat, rows, out_dtype)
+        err = (got.float() - want).abs()
+        tol = 1e-6 * mag + 1e-6
+        if out_dtype == torch.bfloat16:
+            tol += BF16_TOL * want.abs()
+        d = g_flat.shape[1]
+        seen.append((names.get((rows, d), f"K1 rows={rows} D={d}"),
+                     f"{g_flat.shape[0]} ids -> [{rows}, {d}]",
+                     float(err.max()) if err.numel() else 0.0,
+                     bool((err <= tol).all())))
+        return got
+
+    def k3_held(table, uids, new_rows):
+        want = rowdma.rowdma_scatter_rows_plain(table.clone(), uids, new_rows)
+        k3(table, uids, new_rows)
+        exact = bool(torch.equal(table, want))
+        err = 0.0 if exact else float((table - want).abs().max())
+        del want
+        seen.append(("K3", f"{uids.numel()} uids into {list(table.shape)}",
+                     err, exact))
+        return table
+
+    scatter.sorted_stream_sum, rowdma.rowdma_scatter_rows = k1_held, k3_held
+
+    def check():
+        scatter.sorted_stream_sum, rowdma.rowdma_scatter_rows = k1, k3
+        got = {}
+        for site, *_ in seen:
+            got[site] = got.get(site, 0) + 1
+        want = nonzero(SITES_QUALITY["wide_deep"])
+        log(f"phase 10: {what} step 0's launches against their plain "
+            f"versions on the same inputs: " + "; ".join(
+                f"{site} ({shape}) max_abs_err {err:.3g} "
+                f"{'ok' if ok else 'DISAGREES'}"
+                for site, shape, err, ok in seen))
+        if got != want or not all(ok for *_, ok in seen):
+            raise SystemExit(f"phase 10: {what}: the path's kernels "
+                             f"{seen}, want sites {want}")
+    return check
+
+
+def cnn_steps(tr, what, n, on_first=None):
+    """``n`` steps of ``tr.train_file`` over data/train, each step's
+    launches checked against SITES_QUALITY["wide_deep"] and its time taken
+    between CUDA events on the step's stream; step 0's K1 and K3 launches
+    held against their plain versions (``held_to_plain``); ``on_first()``
+    runs after step 0.  -> (losses, step ms)."""
+    import numpy as np
+    import torch
+    train_batch, events, losses = tr.train_batch, [], []
+
+    def counted(batch, **kw):
+        c0 = site_counts(tr, CNN_BATCH)
+        check = held_to_plain(tr, what) if not events else None
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        loss = train_batch(batch, **kw)
+        end.record()
+        events.append((start, end))
+        losses.append(loss)
+        if check is not None:
+            check()
+        check_sites(f"phase 10: {what} step {len(events) - 1}",
+                    delta(c0, site_counts(tr, CNN_BATCH)),
+                    SITES_QUALITY["wide_deep"], window=False)
+        if len(events) == 1 and on_first is not None:
+            on_first()
+        return loss
+
+    tr.train_batch = counted
+    try:
+        tr.train_file(CNN_TRAIN, max_steps=n)
+    finally:
+        del tr.train_batch
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    if len(losses) != n or not all(np.isfinite(losses)):
+        raise SystemExit(f"phase 10: {what} took {len(losses)} steps, "
+                         f"losses {losses}")
+    return losses, [s.elapsed_time(e) for s, e in events]
+
+
+def cnn_host_batches(tr, n):
+    """``n`` host batches of the Trainer's train dataset, and the image
+    assembly's host ms a batch (reading, decoding and placing its 64
+    records: ImageCsvDataset._image_at)."""
+    ds = tr._dataset(CNN_TRAIN, "train")
+    image_at, spent = ds._image_at, []
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = image_at(*a)
+        spent.append(time.perf_counter() - t0)
+        return out
+    ds._image_at = timed
+    it = iter(ds)
+    batches = [next(it) for _ in range(n)]
+    return batches, sum(spent) * 1e3 / n
+
+
+def cnn_profile(tr, batches, what, n_steps=3):
+    """torch.profiler over ``n_steps`` steps on host batches after a
+    warm-up step -> one line: device ms a step, the convolutions' device ms
+    and share, the top kernels, the port's kernels; the host-to-device
+    copies a step must be one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_steps,
+                                   repeat=1)) as prof:
+        for i, b in enumerate(batches[:n_steps + 1]):
+            tr.train_batch(tr._to_device(b))
+            if i == n_steps:
+                torch.cuda.synchronize()
+            prof.step()
+    events = prof.key_averages()
+    kernels = sorted(filter(on_device, events), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
+    conv = sum(getattr(e, "device_time_total", getattr(
+        e, "cuda_time_total", 0)) for e in events
+        if e.key in CONV_OPS) / 1e3 / n_steps
+    top = [f"{e.key[:50]} {dev_us(e) / 1e3 / n_steps:.3f} ms"
+           for e in kernels[:8]]
+    ported = [f"{name} {sum(dev_us(e) for e in hits) / 1e3 / n_steps:.4f} "
+              f"ms x{sum(e.count for e in hits) // n_steps}"
+              for name in PORTED_STEP_KERNELS
+              for hits in [[e for e in kernels if name in e.key]]]
+    n_h2d = sum(e.count for e in kernels if "HtoD" in e.key) / n_steps
+    log(f"phase 10: {what} profile of {n_steps} steps: device busy "
+        f"{busy:.2f} ms/step, convolutions (forward + backward) "
+        f"{conv:.2f} ms ({100 * conv / max(busy, 1e-9):.1f}%); top: "
+        + "; ".join(top) + "; the port's kernels: " + "; ".join(ported)
+        + f"; host-to-device copies a step: {n_h2d:g}")
+    if n_h2d != 1:
+        raise SystemExit(f"phase 10: {what}: {n_h2d:g} host-to-device "
+                         f"copies a step, not 1")
+    return busy, conv
+
+
+def cnn_checks(tr, what, images, with_f32_grads):
+    """The arm's forward + backward twice on one batch of 64 on the card
+    (the same bits), then at batch 2 against the port on the host, float32
+    and float64 (testing.cnn_disagreement)."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    spec, params = tr.model.cnn_spec, tr.params["cnn"]
+    state = tr.mstate.get("cnn_bn")
+    cot = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (images.shape[0], 1)).astype(np.float32))
+    dev = images.to("cuda")
+    (l0, s0, g0), (l1, s1, g1) = [
+        testing.cnn_forward_backward(spec, params, state, dev, cot)
+        for _ in range(2)]
+    same = (same_bits(l0, l1) == [] and same_bits(s0, s1) == []
+            and all(same_bits(g0[p], g1[p]) == [] for p in g0))
+    del l0, s0, g0, l1, s1, g1
+    release()
+    log(f"phase 10: {what}: forward + backward twice on one batch of "
+        f"{images.shape[0]}: {'the same bits' if same else 'DIFFERENT'}")
+    if not same:
+        raise SystemExit(f"phase 10: {what}: two calls differ")
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        host = testing.cnn_forward_backward(
+            spec, params, state, images[:2].to(dt), cot[:2].to(dt))
+        card = testing.cnn_forward_backward(
+            spec, params, state, images[:2].to("cuda", dt), cot[:2].to(dt))
+        d = testing.cnn_disagreement(
+            spec, host, card, with_grads=dt == torch.float64 or with_f32_grads)
+        rows.append(f"{str(dt)[6:]} {d}")
+        if not d["ok"]:
+            raise SystemExit(f"phase 10: {what}: card vs host {dt}: {d}")
+    log(f"phase 10: {what}: the card against the port on the host at batch "
+        f"2 (logits max abs error / host's max, worst BN state and gradient "
+        f"leaf by norm): " + "; ".join(rows))
+
+
+def phase_cnn_vgg(card, tmp):
+    """10a: VGG16 (module docstring)."""
+    import contextlib
+    import io
+    import json as json_lib
+
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch.optim import tree_items
+    from wide_deep_tpu_torch.tools import eval as eval_tool
+    from wide_deep_tpu_torch.tools import export as export_tool
+    from wide_deep_tpu_torch.tools import train as train_tool
+
+    t_phase = time.time()
+    config = conf_copy(tmp, "cnn_vgg16", cnn_use_flag=1)
+    model_dir = os.path.join(tmp, "vgg16")
+    tr = cnn_trainer(config, model_dir)
+    cnn_leaves = dict(tree_items(tr.params["cnn"], ("cnn",)))
+    n_cnn = sum(t.numel() for t in cnn_leaves.values())
+    before = {p: t.clone() for p, t in cnn_leaves.items()}
+    replay = recorded_update(tr)
+    first = {}
+
+    def on_first():
+        torch.cuda.synchronize()
+        first["moved"] = [p for p, t in cnn_leaves.items()
+                          if not torch.equal(t, before[p])]
+        first["worst"], first["skipped"] = replay()
+        before.clear()
+
+    losses, ms = cnn_steps(tr, "VGG16", CNN_VGG_STEPS, on_first)
+    if len(first["moved"]) != len(cnn_leaves):
+        raise SystemExit(f"phase 10: VGG16 leaves unchanged after step 0: "
+                         f"{sorted(set(cnn_leaves) - set(first['moved']))}")
+    cnn_ulp = {k: v for k, v in first["worst"].items()
+               if k.startswith("cnn/")}
+    if len(cnn_ulp) != len(cnn_leaves) or any(first["worst"].values()):
+        raise SystemExit(f"phase 10: step 0's update on the host: "
+                         f"{first['worst']} (skipped {first['skipped']})")
+    med = float(np.median(ms[1:]))
+    flop = 3 * CNN_FWD_FLOP["vgg16"] * CNN_BATCH
+    log(f"phase 10a: VGG16 + wide_deep (conf/, cnn_use_flag 1; "
+        f"{n_cnn:,} CNN params in {len(cnn_leaves)} leaves) at batch "
+        f"{CNN_BATCH}: {CNN_VGG_STEPS} train_file steps, losses "
+        f"{[round(x, 5) for x in losses]}; step ms by CUDA events median "
+        f"{med:.2f} (min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}; step 0 "
+        f"{ms[0]:.2f} with the update recorded and the kernels held), {CNN_BATCH / med * 1e3:.1f} "
+        f"images/s; bound {bound_ms(0, flop)[0]:.2f} ms (3 x 15.5 GFLOP an "
+        f"image at 67 TFLOP/s); every step launched "
+        f"{SITES_QUALITY['wide_deep']}; every cnn leaf changed at step 0; "
+        f"step 0 replayed on the host: {len(cnn_ulp)} cnn leaves, worst "
+        f"{max(cnn_ulp.values())} ulp (all {len(first['worst'])} recorded "
+        f"leaves 0 ulp; not copied: {first['skipped']}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+
+    batches, img_ms = cnn_host_batches(tr, 4)
+    mb = sum(v.nbytes for v in batches[0].values()) / 1e6
+    log(f"phase 10a: image assembly on the host {img_ms:.1f} ms a batch of "
+        f"{CNN_BATCH} (read, decode, place); the batch is {mb:.1f} MB, "
+        f"{batches[0]['image'].nbytes / 1e6:.1f} MB of it images")
+    busy, conv = cnn_profile(tr, batches, "VGG16")
+    cnn_checks(tr, "VGG16", torch.from_numpy(batches[0]["image"]), True)
+    del batches
+    release()
+
+    # a checkpoint, restored into a new Trainer bit for bit
+    t0 = time.time()
+    tr.save()
+    save_s = time.time() - t0
+    t0 = time.time()
+    tr2 = cnn_trainer(config, model_dir, restore=True)
+    diff = state_diff(tr, tr2)
+    opt_cnn = len(tr2.opt_state["dense"]["cnn"]["accum"])
+    log(f"phase 10a: checkpoint at step {tr.global_step} saved in "
+        f"{save_s:.1f} s, restored into a new Trainer in "
+        f"{time.time() - t0:.1f} s: params (cnn included), mstate and "
+        f"optimizer state ({opt_cnn} cnn Adagrad slots) "
+        f"{'bit for bit' if not diff else diff}")
+    if diff or tr2.global_step != tr.global_step:
+        raise SystemExit(f"phase 10a: the restore differs: {diff}")
+    del tr2
+    release()
+
+    c0 = counts()
+    t0 = time.time()
+    res = tr.evaluate(CNN_EVAL)
+    d = nonzero(delta(c0, counts()))
+    log(f"phase 10a: evaluate over data/eval with the TFRecord's images in "
+        f"{time.time() - t0:.1f} s: AUC {res['auc']:.4f}, logloss "
+        f"{res['average_loss']:.4f}; launches {d or 'none'}")
+    if (d or not 0.0 <= res["auc"] <= 1.0
+            or not all(np.isfinite(v) for v in res.values())):
+        raise SystemExit(f"phase 10a: evaluate {res}, launches {d}")
+    del tr
+    release()
+
+    # the CLIs: train 2 steps, eval, export
+    tsv = os.path.join(tmp, "cnn_cli.tsv")
+    with open(os.path.join(CNN_TRAIN, "train1")) as f, open(tsv, "w") as out:
+        for _ in range(CNN_CLI_ROWS):
+            out.write(f.readline())
+    argv = ["--conf_dir", config.conf_dir, "--model_dir",
+            os.path.join(tmp, "cli"), "--batch_size", str(CNN_BATCH),
+            "--train_data", tsv, "--eval_data", tsv, "--test_data", tsv,
+            "--image_train_data", CNN_IMAGES, "--image_eval_data",
+            CNN_IMAGES, "--image_test_data", CNN_IMAGES]
+    out = io.StringIO()
+    c0 = counts()
+    t0 = time.time()
+    cwd = os.getcwd()
+    os.chdir(tmp)                       # the train tool's logs/train.pid
+    try:
+        with contextlib.redirect_stdout(out):
+            cli = train_tool.main(argv + ["--keep_train", "0",
+                                          "--train_epochs", "1",
+                                          "--dynamic_train", "0"])
+            steps = cli.global_step
+            del cli
+            release()
+            res = eval_tool.main(argv)
+            version = export_tool.main(
+                ["--conf_dir", config.conf_dir, "--model_dir",
+                 os.path.join(tmp, "cli"), "--export_dir",
+                 os.path.join(tmp, "cli_export")])
+    finally:
+        os.chdir(cwd)
+    d = nonzero(delta(c0, counts()))
+    want = {k: steps * v for k, v in SITES_QUALITY["wide_deep"].items() if v}
+    with open(os.path.join(version, "params", "index.json")) as f:
+        index = json_lib.load(f)
+    shapes = {n: tuple(v["shape"]) for n, v in index["tensors"].items()
+              if n.startswith("params/cnn/")}
+    want_shapes = {"params/" + "/".join(p): tuple(t.shape)
+                   for p, t in cnn_leaves.items()}
+    cnn_names = sorted(shapes)
+    log(f"phase 10a: tools.train.main {steps} steps at batch {CNN_BATCH} "
+        f"with --image_*_data, tools.eval.main (AUC {res['auc']:.4f}, "
+        f"global_step {res['global_step']}), tools.export.main: the bundle "
+        f"holds the Trainer's {len(cnn_names)} cnn leaves, names and shapes; "
+        f"launches {d} in {time.time() - t0:.1f} s")
+    if (steps != CNN_CLI_ROWS // CNN_BATCH or res["global_step"] != steps
+            or shapes != want_shapes
+            or {k: d.get(k, 0) for k in want} != want or d.get("K2")):
+        raise SystemExit(f"phase 10a: the CLIs: {steps} steps, {res}, "
+                         f"launches {d}, cnn leaves {cnn_names}")
+    log(f"phase 10a in {time.time() - t_phase:.1f} s")
+    return {"step_ms": med, "busy_ms": busy, "conv_ms": conv}
+
+
+def phase_cnn_resnet(card, tmp):
+    """10b: ResNet-50 v2 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.models.cnn import cnn_logits
+    from wide_deep_tpu_torch.models.cnn import resnet as resnet_lib
+
+    t_phase = time.time()
+    config = conf_copy(tmp, "cnn_resnet50", cnn_use_flag=1,
+                       cnn_model="resnet", cnn_resnet_size=50)
+    tr = cnn_trainer(config, os.path.join(tmp, "resnet50"))
+    bn_relu, seen = resnet_lib._bn_relu, {}
+
+    def spy(store, state, new_state, name, x, training, relu=True):
+        if name == "final_bn" and training and "x" not in seen:
+            seen["x"] = x.detach().double().cpu()
+            seen["old"] = {k: v.double().cpu()
+                           for k, v in state[name].items()}
+        return bn_relu(store, state, new_state, name, x, training, relu)
+
+    def on_first():
+        resnet_lib._bn_relu = bn_relu
+        seen["new"] = {k: v.double().cpu()
+                       for k, v in tr.mstate["cnn_bn"]["final_bn"].items()}
+
+    resnet_lib._bn_relu = spy
+    try:
+        losses, ms = cnn_steps(tr, "ResNet-50", CNN_RESNET_STEPS, on_first)
+    finally:
+        resnet_lib._bn_relu = bn_relu
+    x, old, new = seen["x"], seen["old"], seen["new"]
+    n = x.numel() // x.shape[-1]
+    errs = {}
+    for ddof in (0, 1):
+        stat = {"mean": x.mean(dim=(0, 1, 2)),
+                "var": x.var(dim=(0, 1, 2), correction=ddof)}
+        errs[ddof] = max(float(((0.99 * old[k] + 0.01 * stat[k]) - new[k])
+                               .abs().max() / new[k].abs().max())
+                         for k in stat)
+    med = float(np.median(ms[1:]))
+    log(f"phase 10b: ResNet-50 v2 + wide_deep at batch {CNN_BATCH}: "
+        f"{CNN_RESNET_STEPS} train_file steps, losses "
+        f"{[round(v, 5) for v in losses]}; step ms median {med:.2f} (min "
+        f"{min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), "
+        f"{CNN_BATCH / med * 1e3:.1f} images/s; bound "
+        f"{bound_ms(0, 3 * CNN_FWD_FLOP['resnet'] * CNN_BATCH)[0]:.2f} ms; "
+        f"every step launched {SITES_QUALITY['wide_deep']}; final_bn's "
+        f"running stats after step 0 against the host's 0.99 old + 0.01 "
+        f"batch over its {n} values a channel: population variance "
+        f"{errs[0]:.2e}, sample variance {errs[1]:.2e} (relative)")
+    if not errs[0] <= 1e-5:
+        raise SystemExit(f"phase 10b: the running stats move otherwise "
+                         f"than the JAX formula: {errs}")
+    batches, img_ms = cnn_host_batches(tr, 4)
+    cnn_profile(tr, batches, "ResNet-50")
+    images = torch.from_numpy(batches[0]["image"])
+    del batches
+    # eval reads the running stats: the card's eval forward is the host's
+    # from those stats, and not the batch-stat forward
+    with torch.no_grad():
+        spec, params = tr.model.cnn_spec, tr.params["cnn"]
+        state = tr.mstate["cnn_bn"]
+        dev = images[:2].to("cuda")
+        card = cnn_logits(params, spec, dev, 1, False, state)[0].cpu()
+        batch_stats = cnn_logits(params, spec, dev, 1, False, None)[0].cpu()
+        host = cnn_logits(host_copy(params), spec, images[:2], 1, False,
+                          host_copy(state))[0]
+    err = float((card - host).abs().max() / host.abs().max())
+    gap = float((batch_stats - host).abs().max() / host.abs().max())
+    log(f"phase 10b: eval forward from the running stats: card vs host "
+        f"{err:.2e}; against a batch-statistics forward {gap:.2e}")
+    if not (err <= testing.CNN_FWD_TOL and gap > 10 * testing.CNN_FWD_TOL):
+        raise SystemExit(f"phase 10b: eval does not read the running stats")
+    cnn_checks(tr, "ResNet-50", images, False)
+    c0 = counts()
+    res = tr.evaluate(CNN_EVAL)
+    d = nonzero(delta(c0, counts()))
+    log(f"phase 10b: evaluate over data/eval: AUC {res['auc']:.4f}, logloss "
+        f"{res['average_loss']:.4f}; launches {d or 'none'}; phase 10b in "
+        f"{time.time() - t_phase:.1f} s")
+    if (d or not 0.0 <= res["auc"] <= 1.0
+            or not all(np.isfinite(v) for v in res.values())):
+        raise SystemExit(f"phase 10b: evaluate {res}, launches {d}")
+    del tr
+    release()
+    return {"step_ms": med}
+
+
+def host_copy(tree):
+    """A tree of tensors copied to the host."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def phase_tfrecord(tmp):
+    """10c: data/image/train.tfrecords read through the port's codec and
+    written back: the same bytes; PIL stays unloaded."""
+    from wide_deep_tpu_torch.features import tfrecord
+    had_pil = "PIL" in sys.modules
+    t0 = time.time()
+    recs = list(tfrecord.read_records(CNN_IMAGES, verify=True))
+    out = os.path.join(tmp, "round_trip.tfrecords")
+    tfrecord.write_records(out, iter(recs))
+    with open(CNN_IMAGES, "rb") as a, open(out, "rb") as b:
+        same = a.read() == b.read()
+    pil = "PIL" in sys.modules and not had_pil
+    log(f"phase 10c: {len(recs)} records of data/image/train.tfrecords read "
+        f"(crc checked) and written back in {time.time() - t0:.1f} s: "
+        f"{'the same bytes' if same else 'DIFFERENT bytes'}; PIL "
+        f"{'loaded' if pil else 'not loaded'}")
+    if not same or pil or len(recs) != 24:
+        raise SystemExit("phase 10c: the round trip failed")
+
+
+def phase_cnn(card, tmp):
+    """Phase 10: the CNN arm (module docstring).  -> its launches."""
+    t0 = time.time()
+    reset_counts()                      # the CNN path starts here
+    vgg = phase_cnn_vgg(card, tmp)
+    release()
+    resnet = phase_cnn_resnet(card, tmp)
+    cnn_counts = counts()
+    phase_tfrecord(tmp)
+    log(f"phase 10 in {time.time() - t0:.1f} s: VGG16 {vgg['step_ms']:.2f} "
+        f"ms a step, ResNet-50 {resnet['step_ms']:.2f}; launches "
+        f"{nonzero(cnn_counts)}")
+    return cnn_counts
+
+
 def count_key(name):
     """A kernels-line row's counter: "K1 range_scatter_add d8" -> "K1 d8",
     "K3 rowdma_scatter_rows d32" -> "K3", "P2 bulk_scatter_rows f32" ->
@@ -2360,6 +2908,8 @@ def main():
         phase_configs(card, tmp)
         release()
         phase_quality(card, tmp)
+        release()
+        cnn_counts = phase_cnn(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2370,11 +2920,17 @@ def main():
         row["launches"] = paths.get(count_key(row["name"]), 0)
         if not row["name"].startswith("P"):
             row["launches_cli"] = cli_counts.get(count_key(row["name"]), 0)
+            row["launches_cnn"] = cnn_counts.get(count_key(row["name"]), 0)
         if "bf16" in row:
             row["bf16"]["launches"] = tool_counts["P2 bf16"]
     if not all(row["launches"] > 0 for row in kernels):
         raise SystemExit(f"a kernel never ran on its path: train "
                          f"{main_counts}, tools {tool_counts}")
+    # the CNN path's kernels: K1 at the wide gather and the d32 compact sum,
+    # K3 (SITES_QUALITY["wide_deep"])
+    if not all(cnn_counts.get(k, 0) > 0 for k, v in
+               SITES_QUALITY["wide_deep"].items() if v):
+        raise SystemExit(f"a kernel never ran on the CNN path: {cnn_counts}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1123,3 +1123,72 @@ def test_cuda_fused_row_update_matches_host_bits(cuda_device, name):
     for count, (host, card) in enumerate(zip(out["cpu"], out["cuda"])):
         for i, (a, b) in enumerate(zip(host, card)):
             assert int(_ulp(a, b).max()) == 0, (name, count, i)
+
+
+# ------------------------------------------------------------- the CNN arm
+def _cnn_case(model, size, batch, seed=0):
+    """(spec, params, BN state after one training forward, images, cot) on
+    the host: the port's own random init (seeded), 224 x 224 images."""
+    from wide_deep_tpu_torch.models.cnn import (CnnSpec, cnn_logits,
+                                                init_cnn_params)
+    spec = CnnSpec(model=model, resnet_size=size)
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(
+        (rng.random((batch, 224, 224, 3)) * 255 - 120).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((batch, 1)).astype(
+        np.float32))
+    params, state = init_cnn_params(torch.Generator().manual_seed(seed),
+                                    spec, 1, images[:1], torch.device("cpu"))
+    with torch.no_grad():
+        _, state = cnn_logits(params, spec, images, 1, True, state)
+    return spec, params, state, images, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,size", [("vgg16", 50), ("resnet", 50)])
+def test_cuda_cnn_matches_cpu(cuda_device, model, size):
+    """The CNN arm on the card against the port on the host at batch 2,
+    from the same weights: float32 logits and BN state (and VGG's
+    gradients), float64 logits, gradients and BN state, with the CPU
+    tests' tolerances (wide_deep_tpu_torch.testing.cnn_disagreement)."""
+    from wide_deep_tpu_torch.models.deep import set_parity_precision
+    from wide_deep_tpu_torch.testing import (cnn_disagreement,
+                                             cnn_forward_backward)
+    set_parity_precision()
+    spec, params, state, images, cot = _cnn_case(model, size, 2)
+    for dt in (torch.float32, torch.float64):
+        for training in (True, False):
+            host = cnn_forward_backward(spec, params, state, images.to(dt),
+                                        cot.to(dt), training)
+            card = cnn_forward_backward(spec, params, state,
+                                        images.to(cuda_device, dt),
+                                        cot.to(dt), training)
+            d = cnn_disagreement(
+                spec, host, card,
+                with_grads=dt == torch.float64 or model == "vgg16")
+            assert d["ok"], (dt, training, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,size", [("vgg16", 50), ("resnet", 50)])
+def test_cuda_cnn_forward_backward_is_deterministic(cuda_device, model,
+                                                    size):
+    """Two forward + backward passes of the CNN arm on one batch of 8 give
+    the same bits: logits, BN state and every gradient (deterministic
+    cuDNN algorithms, models/deep.set_parity_precision)."""
+    from wide_deep_tpu_torch.models.deep import set_parity_precision
+    from wide_deep_tpu_torch.testing import cnn_forward_backward
+    set_parity_precision()
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark
+    spec, params, state, images, cot = _cnn_case(model, size, 8)
+    images = images.to(cuda_device)
+    runs = [cnn_forward_backward(spec, params, state, images, cot)
+            for _ in range(2)]
+    (l0, s0, g0), (l1, s1, g1) = runs
+    assert torch.equal(l0, l1)
+    for k in s0:
+        for s in s0[k]:
+            assert torch.equal(_bits(s0[k][s]), _bits(s1[k][s])), (k, s)
+    for p in g0:
+        assert torch.equal(_bits(g0[p]), _bits(g1[p])), p

@@ -226,6 +226,7 @@ def test_quality_and_serving_tools_stand_alone():
     ("quality_onchip", ["--part", "B"]),
     ("quality_matrix", ["--only", "wide"]),
     ("pack_budget_curve", ["--budgets", "1"]),
+    ("microbench_cudnn_determinism", ["--models", "vgg16"]),
 ])
 def test_quality_and_slo_tools_need_cuda_unless_cpu_is_asked(
         monkeypatch, tmp_path, tool, argv):
@@ -240,3 +241,32 @@ def test_quality_and_slo_tools_need_cuda_unless_cpu_is_asked(
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(argv + extra)
     assert os.listdir(tmp_path) == []
+
+
+CNN_MODULES = ("wide_deep_tpu_torch.features.tfrecord",
+               "wide_deep_tpu_torch.features.image",
+               "wide_deep_tpu_torch.models.cnn",
+               "wide_deep_tpu_torch.models.cnn.vgg",
+               "wide_deep_tpu_torch.models.cnn.resnet",
+               "wide_deep_tpu_torch.tools.create_record",
+               "wide_deep_tpu_torch.tools.microbench_cudnn_determinism")
+
+
+def test_cnn_modules_stand_alone():
+    """The CNN arm, its TFRecord and image pipeline, create_record and the
+    deterministic-cuDNN probe are the port's own files (scanned by the tests above), and importing them
+    loads neither JAX, the JAX package (not even its JAX-free tfrecord and
+    image modules) nor PIL, which only create_record's main needs."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in CNN_MODULES:
+        path = mod.replace(".", "/")
+        assert path + ".py" in files or path + "/__init__.py" in files, mod
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in CNN_MODULES)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'optax', 'wide_deep_tpu', 'PIL')]\n"
+              "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr

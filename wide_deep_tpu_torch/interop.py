@@ -3,7 +3,9 @@
 Both packages keep the same param tree: ``linear/{w,b,fold/d<dim>}``,
 ``dnn/embed/d<dim>`` (the fused sparse-optimizer tables as float32
 [rows, 128] with their slot columns), ``dnn/towers/<i>/{hidden,bn,logits}``,
-and BN state ``bn/t<i>_l<j>_bn/{mean,var}``.  The caller hands over nested
+BN state ``bn/t<i>_l<j>_bn/{mean,var}``, and with the CNN arm
+``cnn/{vgg,resnet}/<layer>/...`` + ``cnn/head/{kernel,bias}`` (HWIO conv
+kernels) and ``cnn_bn/<layer>/{mean,var}``.  The caller hands over nested
 dicts and lists of numpy arrays (``jax.device_get`` of the JAX trees); the
 port never imports JAX.  bfloat16 arrays (numpy's ml_dtypes ``bfloat16``)
 travel bit for bit.

@@ -70,9 +70,13 @@ class summary_scope:
 def set_parity_precision() -> None:
     """Full float32 matrix products and convolutions on the card: TF32
     keeps ~3 decimal digits, and the port is held against the JAX package
-    in float32."""
+    in float32.  cuDNN runs only deterministic algorithms, chosen without
+    benchmarking: the CNN arm's convolutions then give the same bits on
+    every call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,10 @@
-"""Joint Wide & Deep model (port of wide_deep_tpu/models/joint.py without
-the CNN arm).
+"""Joint Wide & Deep (& CNN) model (port of wide_deep_tpu/models/joint.py).
 
 The model is a plain object; params and state live outside it as nested
-dicts of tensors whose top-level keys (``linear``, ``dnn``) are also the
-per-arm optimizer partition.  ``logits = deep + fold_wide + linear``, a
-logistic head for two classes, softmax otherwise.
+dicts of tensors whose top-level keys (``linear``, ``dnn``, ``cnn``) are
+also the per-arm optimizer partition.  ``logits = deep + fold_wide + linear
+(+ cnn)``, a logistic head for two classes, softmax otherwise.  State is
+``{"bn": ..., "cnn_bn": ...}``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 
 from wide_deep_tpu_torch.features.plan import FeaturePlan, fold_enabled
 from wide_deep_tpu_torch.models import heads
+from wide_deep_tpu_torch.models.cnn import (CnnSpec, cnn_logits,
+                                            init_cnn_params)
 from wide_deep_tpu_torch.models.deep import (DTYPES, DeepSpec, ParamStore,
                                              PlanConstants, deep_logits,
                                              indicator_block,
@@ -46,6 +48,7 @@ class WideDeep:
     deep_spec: Optional[DeepSpec] = None
     model_type: str = "wide_deep"
     n_classes: int = 2
+    cnn_spec: Optional[CnnSpec] = None
     fm_factors: int = 0             # >0 adds the FM pairwise term (wide arm)
 
     def __post_init__(self):
@@ -75,6 +78,24 @@ class WideDeep:
     def has_deep(self) -> bool:
         return self.model_type in ("deep", "wide_deep")
 
+    @property
+    def has_cnn(self) -> bool:
+        return self.cnn_spec is not None
+
+    def sample_batch(self, device) -> Dict[str, torch.Tensor]:
+        """A one-row batch of zeros (mask 1) on ``device``, with the
+        ``image`` entry when the model has the CNN arm: what ``init`` takes
+        its shapes from."""
+        cnn = self.cnn_spec
+        spec = self.plan.batch_spec(
+            1, self.n_classes, with_image=cnn is not None,
+            image_shape=cnn.image_shape if cnn else (224, 224, 3))
+        sample = {k: torch.zeros(shape, dtype=getattr(torch, dt.__name__),
+                                 device=device)
+                  for k, (shape, dt) in spec.items()}
+        sample["mask"] = torch.ones_like(sample["mask"])
+        return sample
+
     def init(self, seed: int, sample_batch: Dict[str, torch.Tensor],
              device=None) -> Tuple[Dict, Dict]:
         """(params, state) drawn from a ``torch.Generator`` seeded with
@@ -82,7 +103,8 @@ class WideDeep:
         Shapes come from one forward over the first row of
         ``sample_batch``, which must lie on that device.  On the ``meta``
         device only shapes and dtypes come out and nothing is drawn or
-        allocated."""
+        allocated.  The CNN arm draws last, from ``sample_batch["image"]``,
+        so the other arms' weights do not depend on it."""
         device = resolve_device(device)
         gen = torch.Generator(
             device="cpu" if device.type == "meta" else device
@@ -102,6 +124,9 @@ class WideDeep:
             params["linear"] = init_linear_params(
                 self.plan, self.n_logits, device, with_fold=self.has_deep,
                 fm_factors=self.fm_factors, gen=gen)
+        if self.has_cnn:
+            params["cnn"], state["cnn_bn"] = init_cnn_params(
+                gen, self.cnn_spec, self.n_logits, sample["image"], device)
         return params, state
 
     def apply(self, params: Dict, state: Dict,
@@ -134,6 +159,11 @@ class WideDeep:
                 add(fold_wide)
         if self.has_wide:
             add(linear_logits(params["linear"], batch, self.consts))
+        if self.has_cnn:
+            cl, new_state["cnn_bn"] = cnn_logits(
+                params["cnn"], self.cnn_spec, batch["image"], self.n_logits,
+                training, state.get("cnn_bn"))
+            add(cl)
         return logits, new_state
 
     def loss_fn(self, params: Dict, state: Dict,
@@ -168,12 +198,11 @@ def build_model(config, plan: Optional[FeaturePlan] = None,
                 model_type: Optional[str] = None, n_classes: int = 2,
                 dtype=None) -> WideDeep:
     """Config -> WideDeep.  ``dtype`` overrides the dense compute dtype
-    (default: model.yaml dense_dtype)."""
+    (default: model.yaml dense_dtype); the CNN arm (``cnn_use_flag``)
+    computes in float32 either way."""
     set_parity_precision()
     model_conf = config.model
     model_type = model_type or config.train["model_type"]
-    if model_conf.get("cnn_use_flag"):
-        raise NotImplementedError("the CNN arm is not ported yet")
     if plan is None:
         plan = FeaturePlan(config, fold=fold_enabled(config, model_type))
     if dtype is None:
@@ -181,6 +210,8 @@ def build_model(config, plan: Optional[FeaturePlan] = None,
     deep_spec = None
     if model_type != "wide":
         deep_spec = DeepSpec.from_model_conf(model_conf, dtype=dtype)
+    cnn_spec = (CnnSpec.from_model_conf(model_conf)
+                if model_conf.get("cnn_use_flag") else None)
     return WideDeep(plan=plan, deep_spec=deep_spec, model_type=model_type,
-                    n_classes=n_classes,
+                    n_classes=n_classes, cnn_spec=cnn_spec,
                     fm_factors=int(model_conf.get("linear_fm_factors") or 0))

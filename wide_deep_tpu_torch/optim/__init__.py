@@ -245,12 +245,15 @@ def leaf_update_(spec, lr, count: int, w, g, slots: Dict[str, Any]) -> None:
 
 
 class JointOptimizer:
-    """Per-arm optimizers over one loss, partitioned by top-level key."""
+    """Per-arm optimizers over one loss, partitioned by top-level key: each
+    of ``linear``, ``dnn`` and ``cnn`` present in ``arms`` takes its
+    ``<arm>_optimizer``, ``<arm>_initial_learning_rate`` and
+    ``<arm>_decay_rate`` from model.yaml."""
 
     def __init__(self, model_conf: Dict[str, Any], decay_steps: float,
                  arms: Dict[str, bool], sparse_paths=frozenset()):
         self.arms = {}
-        for arm in ("linear", "dnn"):
+        for arm in ("linear", "dnn", "cnn"):
             if not arms.get(arm):
                 continue
             spec = model_conf[f"{arm}_optimizer"]
@@ -260,8 +263,6 @@ class JointOptimizer:
                            model_conf[f"{arm}_initial_learning_rate"])
             self.arms[arm] = (spec, exponential_decay(
                 lr0, model_conf.get(f"{arm}_decay_rate", 1.0), decay_steps))
-        if arms.get("cnn"):
-            raise NotImplementedError("the CNN arm is not ported yet")
         self.sparse_paths = frozenset(sparse_paths)
 
     def leaves(self, params, arm: str):

@@ -42,17 +42,13 @@ BUNDLE_FILE = "bundle.json"
 PARAMS_DIR = "params"
 
 
-def abstract_state(model: WideDeep, n_classes: int) -> Dict[str, Any]:
+def abstract_state(model: WideDeep) -> Dict[str, Any]:
     """{"params", "mstate"} of ``model`` on the ``meta`` device: the shapes
-    and dtypes of a serving model's leaves, with nothing drawn or
-    allocated (the production tables are gigabytes)."""
+    and dtypes of a serving model's leaves (the CNN arm's too, where the
+    model has one), with nothing drawn or allocated (the production tables
+    are gigabytes)."""
     meta = torch.device("meta")
-    spec = model.plan.batch_spec(1, n_classes)
-    sample = {k: torch.zeros(shape, dtype=getattr(torch, dt.__name__),
-                             device=meta)
-              for k, (shape, dt) in spec.items()}
-    sample["mask"] = torch.ones_like(sample["mask"])
-    params, mstate = model.init(0, sample, meta)
+    params, mstate = model.init(0, model.sample_batch(meta), meta)
     return {"params": params, "mstate": mstate}
 
 
@@ -129,7 +125,7 @@ def export_savedmodel(config: Config, export_dir: str,
     plan = _plan(config, model_type, checkpoint_path, model_dir)
     model = build_model(config, plan=plan, model_type=model_type,
                         n_classes=n_classes)
-    abstract = abstract_state(model, n_classes)
+    abstract = abstract_state(model)
 
     if checkpoint_path:
         ckpt_dir, step = resolve_checkpoint(checkpoint_path)
@@ -266,7 +262,7 @@ def load_bundle(version_dir: str, config: Optional[Config] = None,
             # what it reads)
             config.config
             config.data_process
-    abstract = abstract_state(model, bundle["n_classes"])
+    abstract = abstract_state(model)
     stored = ckpt.load_flat(os.path.join(version_dir, PARAMS_DIR))
     wanted = dict(ckpt.named_leaves(abstract))
     if set(stored) != set(wanted):

@@ -208,3 +208,73 @@ def synthetic_batch(plan, batch_size, rng):
         batch["cont"] = rng.random(
             (batch_size, len(plan.continuous_slots))).astype(np.float32)
     return batch
+
+
+# --------------------------------------------------------------- CNN checks
+# The CNN arm on the card against the port on the host, with the CPU tests'
+# tolerances (tests/test_torch_cnn.py): float32 logits within 1e-4 of the
+# host's largest, BN state within 1e-4 by norm; float64 logits, gradients
+# and BN state within 1e-10.  float32 gradients are held only for VGG,
+# within 1e-2 by norm (a max-pool or ReLU near-tie routes them by the last
+# bit); a ResNet's only in float64.
+CNN_FWD_TOL = 1e-4
+CNN_STATE_TOL = 1e-4
+CNN_F64_TOL = 1e-10
+VGG_GRAD_TOL = 1e-2
+
+
+def cnn_forward_backward(spec, params, state, images, cot, training=True):
+    """The CNN arm's (logits, new BN state, {path: gradient of sum(logits *
+    cot)}) from copies of ``params`` (and ``state``) on ``images``' device
+    and in its dtype."""
+    import torch
+
+    from wide_deep_tpu_torch.models.cnn import cnn_logits
+    from wide_deep_tpu_torch.optim import tree_items
+    dev, dt = images.device, images.dtype
+    leaves = [(p, t.detach().to(dev, dt).requires_grad_(True))
+              for p, t in tree_items(params)]
+    tree: dict = {}
+    for path, t in leaves:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    st = {k: {s: v.to(dev, dt) for s, v in d.items()}
+          for k, d in (state or {}).items()}
+    logits, new_state = cnn_logits(tree, spec, images, cot.shape[1],
+                                   training, st or None)
+    grads = torch.autograd.grad((logits * cot.to(dev, dt)).sum(),
+                                [t for _, t in leaves])
+    return (logits.detach(), new_state,
+            {p: g for (p, _), g in zip(leaves, grads)})
+
+
+def cnn_disagreement(spec, host, card, with_grads: bool):
+    """How far ``card``'s ``cnn_forward_backward`` lies from ``host``'s:
+    {"logits": max abs error over the host's largest, "state": worst BN
+    leaf by norm, "grads": worst gradient leaf by norm, or None} and
+    whether each is within the tolerance of its dtype (float64: every
+    entry within CNN_F64_TOL; float32: logits and state as above, and with
+    ``with_grads`` every gradient leaf within VGG_GRAD_TOL)."""
+    import torch
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    hl, hs, hg = host
+    cl, cs, cg = card
+    f64 = hl.dtype == torch.float64
+    out = {"logits": float((cl.double().cpu() - hl.double()).abs().max()
+                           / hl.double().abs().max()),
+           "state": max([rel(cs[k][s], hs[k][s]) for k in hs
+                         for s in hs[k]] or [0.0]),
+           "grads": None}
+    ok = (out["logits"] <= (CNN_F64_TOL if f64 else CNN_FWD_TOL)
+          and out["state"] <= (CNN_F64_TOL if f64 else CNN_STATE_TOL)
+          and sorted(hs) == sorted(cs))
+    if with_grads:
+        out["grads"] = max(rel(cg[p], hg[p]) for p in hg)
+        ok = ok and out["grads"] <= (CNN_F64_TOL if f64 else VGG_GRAD_TOL)
+    out["ok"] = bool(ok)
+    return out

@@ -13,7 +13,9 @@
   scoring server and its client (counterparts of tools/{export,serve,
   client}.py); ``bench_serving`` and ``microbench_serving_latency``:
   serving throughput by concurrency and one scoring call's latency by
-  batch bucket.
+  batch bucket;
+* ``microbench_cudnn_determinism``: the CNN arm's forward + backward with
+  and without cuDNN's deterministic algorithms.
 
 Each runs on the card unless it is given ``--device cpu``, where the kernel
 wrappers take their plain versions.  Shared here by the microbenchmarks and

@@ -35,6 +35,11 @@ def base_parser(description: str, argv: Optional[Sequence[str]] = None
     p.add_argument("--train_data", default=t["train_data"])
     p.add_argument("--eval_data", default=t["eval_data"])
     p.add_argument("--test_data", default=t["test_data"])
+    p.add_argument("--image_train_data", default=t["image_train_data"],
+                   help="TFRecord of the images paired with the train rows "
+                        "(the CNN arm, model.yaml cnn_use_flag)")
+    p.add_argument("--image_eval_data", default=t["image_eval_data"])
+    p.add_argument("--image_test_data", default=t["image_test_data"])
     p.add_argument("--batch_size", type=int, default=t["batch_size"])
     p.add_argument("--train_epochs", type=int, default=t["train_epochs"])
     p.add_argument("--epochs_per_eval", type=int, default=t["epochs_per_eval"])
@@ -85,6 +90,9 @@ def overrides_from(args) -> dict:
         checkpoint_path=args.checkpoint_path,
         pos_sample_loss_weight=args.pos_sample_loss_weight,
         neg_sample_loss_weight=args.neg_sample_loss_weight,
+        image_train_data=args.image_train_data,
+        image_eval_data=args.image_eval_data,
+        image_test_data=args.image_test_data,
         eval_every_n_steps=args.eval_every_n_steps)
 
 

@@ -1,6 +1,5 @@
 """Trainer: the single-device training loop (the port of
-wide_deep_tpu/training/loop.py without the multi-device and CNN paths),
-after the reference's entry-point loops (python/train.py:65-170,
+wide_deep_tpu/training/loop.py without its multi-device path), after the reference's entry-point loops (python/train.py:65-170,
 eval.py:56-83, pred.py:52-74):
 
 * ``train_and_eval``: per epoch, per train file: train, then evaluate the
@@ -8,6 +7,11 @@ eval.py:56-83, pred.py:52-74):
 * ``dynamic_train``: rolling window, train on file[i], test on file[i+1];
 * ``train_stream``: a live TSV stream over TCP (features/stream.py);
 * ``train``, ``evaluate`` and ``predict`` one-shots.
+
+With the CNN arm (``cnn_use_flag``) each TSV row pairs with an image of the
+TFRecord file train.yaml's ``image_{train,eval,test}_data`` names, by the
+row's index (features/image.ImageCsvDataset); the image joins the batch's
+one packed transfer.
 
 ``train_file`` runs the loader and the host-to-device copy in threads
 ahead of the step, checkpoints at the runconfig's cadence
@@ -203,7 +207,7 @@ class Trainer:
         self.tx = build_joint_optimizer(
             self.config.model, decay_steps,
             arms={"linear": self.model.has_wide,
-                  "dnn": self.model.has_deep},
+                  "dnn": self.model.has_deep, "cnn": self.model.has_cnn},
             sparse_paths=sparse_paths)
         self.pos_weight = self.train_conf.get("pos_sample_loss_weight")
         self.neg_weight = self.train_conf.get("neg_sample_loss_weight")
@@ -238,11 +242,7 @@ class Trainer:
             return
         fresh = self.params is None
         if fresh:
-            spec = self.plan.batch_spec(1, self.n_classes)
-            sample = {k: torch.zeros(shape, dtype=getattr(torch, dt.__name__),
-                                     device=self.device)
-                      for k, (shape, dt) in spec.items()}
-            sample["mask"] = torch.ones_like(sample["mask"])
+            sample = self.model.sample_batch(self.device)
             self.params, self.mstate = self.model.init(self.seed, sample,
                                                        self.device)
             sparse_lib.init_fused_params(self.params, self.sparse_tables)
@@ -338,14 +338,36 @@ class Trainer:
         self.losses.append(loss)
         return loss
 
-    def _dataset(self, path: str, mode: str,
-                 epoch_seed: int = 0) -> CsvDataset:
-        return CsvDataset(
-            self.plan, path, mode, self.batch_size,
+    def _image_path(self, mode: str, data_path: str) -> Optional[str]:
+        """The TFRecord file whose images pair with ``data_path``'s rows:
+        the train images for training, the test images for the test data
+        and for prediction, else the eval images; None without the CNN
+        arm."""
+        if not self.model.has_cnn:
+            return None
+        if mode == "train":
+            return self.train_conf.get("image_train_data")
+        if data_path == self.train_conf.get("test_data") or mode == "pred":
+            return self.train_conf.get("image_test_data")
+        return self.train_conf.get("image_eval_data")
+
+    def _dataset(self, path: str, mode: str, epoch_seed: int = 0):
+        """A CsvDataset over ``path``, or with the CNN arm an
+        ImageCsvDataset pairing its rows with ``_image_path``'s images."""
+        kwargs = dict(
             n_classes=self.n_classes, pos_weight=self.pos_weight,
             neg_weight=self.neg_weight,
             shuffle_buffer=int(self.train_conf["num_examples"]),
             seed=self.seed + epoch_seed, transformer=self.transformer)
+        img = self._image_path(mode, path)
+        if img:
+            from wide_deep_tpu_torch.features.image import ImageCsvDataset
+            cnn = self.model.cnn_spec
+            return ImageCsvDataset(
+                self.plan, path, img, mode, self.batch_size,
+                height=cnn.height, width=cnn.width, channels=cnn.channels,
+                **kwargs)
+        return CsvDataset(self.plan, path, mode, self.batch_size, **kwargs)
 
     def train_file(self, path: str, epoch_seed: int = 0,
                    max_steps: Optional[int] = None) -> float:
