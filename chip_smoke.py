@@ -169,8 +169,33 @@ each on stdout:
        host check, ``evaluate``;
     c. data/image/train.tfrecords read (crc checked) and written back by
        the port's codec: the same bytes, PIL not loaded;
+11. training across ranks (PR 13): conf/ copied with ``pack_budget: 3``
+    and the mesh ``{data: 2, model: 1}``, a generated TSV of 5 global
+    batches of 25,600 rows and an eval TSV of 25,600: first one device
+    trains the 5 batches from the seed's weights, evaluates and saves;
+    then ``wide_deep_tpu_torch.tools.input_server`` (a subprocess) and 2
+    ranks (``chip_smoke.py --sharded-rank``, the WDT_* variables of the
+    JAX launcher; ``parallel.mesh.placement``: both on the one card over
+    gloo, a card each over NCCL where there are two) run
+    ``tools.train.main`` on the production model at full width, 12,800
+    rows a rank, each holding half of every row-sharded table: every
+    step's launches read against ``SITES_SHARDED`` (K1 on the rank's d8
+    range plan row, its d32 compact plan row, the replicated d4 group and
+    the wide table's shard; K2 on its d16 window plan row, or K1 when the
+    row says ok=0; K3 into its d32 shard), step 0's K1 / K2 / K3 launches
+    held against their plain versions on the per-shard inputs, each
+    step's ms by CUDA events and the exchange's bytes by the port's
+    counter; the ranks' losses the same bits; their losses, ``evaluate``
+    and whole state after 5 steps against one device's within
+    ``SHARDED_*_TOL``; one device's checkpoint restored into each rank's
+    rows bit for bit, and the ranks' checkpoint (rank 0 writes the whole
+    leaves) into one device bit for bit; then the mesh ``{data: 1,
+    model: 2}`` without the input service (each rank reads the global
+    batch), its losses against one device's; the NCCL ranks on separate
+    cards only with two cards, else a line says they did not run;
 then one JSON line describing the kernels (with each row's launches on the
-CLI path and on the CNN path), and the device line.
+CLI path, on the CNN path and, by rank, on the sharded path), and the
+device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -1625,11 +1650,12 @@ def site_names(trainer, batch=BATCH):
     return out
 
 
-def site_counts(trainer, batch=BATCH):
-    """The counters by site of ``trainer``'s step (``site_names``)."""
+def site_counts(trainer, batch=BATCH, names=None):
+    """The counters by site of ``trainer``'s step (``names``, default
+    ``site_names``)."""
     from wide_deep_tpu_torch.ops import scatter
     c = {k: v for k, v in counts().items() if not k.startswith("K1 ")}
-    names = site_names(trainer, batch)
+    names = names or site_names(trainer, batch)
     for shape, n in scatter.range_launches_by_shape.items():
         key = names.get(shape, f"K1 rows={shape[0]} D={shape[1]}")
         c[key] = c.get(key, 0) + n
@@ -2824,6 +2850,596 @@ def phase_cnn(card, tmp):
     return cnn_counts
 
 
+# ------------------------------------------------------------------ phase 11
+SHARDED_RANKS = 2
+SHARDED_STEPS = 5              # global batches of BATCH rows on the ranks
+# the ranks against one device from the same weights and batches, after
+# SHARDED_STEPS steps.  The dense layers compute in bfloat16 (conf/), so a
+# half batch's kernel and bias gradients round otherwise than the whole
+# batch's, and BN's moments are sums of two halves; Adagrad's first steps
+# move a weight by ~lr whatever the gradient's size, so a small leaf (a
+# bias) moves most.  Measured on the card (PERF.md, PR 13 call 1): worst
+# leaf 2.84e-2 of its largest value (a BN bias), losses 1.13e-4 relative,
+# AUC / logloss 2.2e-4; the bars are about twice the readings.
+SHARDED_STATE_TOL = 2.0 ** -4  # per leaf: max |a - b| / max |b|
+SHARDED_LOSS_TOL = 2.0 ** -12  # relative, each step's loss
+SHARDED_EVAL_TOL = 5e-4        # AUC and logloss, absolute
+# K1's sites on a rank's step (2 ranks, conf/): d8's range plan row and
+# the d32 compact plan row (one each); d4 is replicated (its table and
+# fold column each summed by K1 over the stably sorted ids); the wide
+# table's shard (the pooled gather and the indicator rows); d16's window
+# plan row runs K2, or K1 when its flag says ok=0
+SITES_SHARDED = {"K1 d8": 1, "K1 d4": 2, "K1 d32 compact": 1, "K1 wide": 2,
+                 "K3": 1}
+
+
+def sharded_site_names(trainer, batch):
+    """{(rows, D): site} of K1's call sites on a rank's step: the shapes
+    of its shard's sums (``SITES_SHARDED``)."""
+    from wide_deep_tpu_torch.ops.scatter import shard_cap
+    plan, mesh = trainer.plan, trainer.mesh
+    paths = trainer.sharded_paths
+    s = mesh.world
+    w_rows = plan.wide_dim // s if ("linear", "w") in paths else plan.wide_dim
+    out = {(w_rows, 1): "K1 wide"}
+    for g in plan.groups:
+        width = g.dim + (1 if g.folded else 0)
+        n = batch * plan.group_packed_len[g.dim]
+        if plan.sparse_opt_group(g, batch):
+            out[shard_cap(n, s), g.dim] = f"K1 d{g.dim} compact"
+        elif plan.scatter_group(g, batch):
+            out[g.rows // s, width] = f"K1 d{g.dim}"
+        elif plan.window_group(g, batch):
+            out[g.rows // s, width] = f"K1 d{g.dim} ok=0"
+        elif ("dnn", "embed", f"d{g.dim}") not in paths:
+            out[g.rows, g.dim] = f"K1 d{g.dim}"
+            if g.folded:
+                out[g.rows, 1] = f"K1 d{g.dim}"
+    return out
+
+
+def event_ms(fn, calls=5):
+    """Median ms of ``calls`` calls of ``fn`` by CUDA events."""
+    import torch
+    out = []
+    for _ in range(calls):
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return sorted(out)[len(out) // 2]
+
+
+def held_to_plain_sharded(trainer, batch, seen):
+    """Wrap K1, K2 and K3 for one rank step, as ``held_to_plain`` does:
+    each launch against its plain version on the same per-shard inputs
+    (K1 and K2 within 1e-6 of each row's sum of |g| + 1e-6, one bfloat16
+    ulp more for a bfloat16 output; K3 exact on a copy of the shard), and
+    timed again on them (median of 5 calls by CUDA events, beside its
+    bound: ids, perm and the rows read once, the output written once),
+    appended to ``seen``.  -> a function restoring the wrappers."""
+    import torch
+
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    k1, k2 = scatter.sorted_stream_sum, scatter.window_scatter_add
+    k3 = rowdma.rowdma_scatter_rows
+    names = sharded_site_names(trainer, batch)
+
+    def timed(call):
+        """event_ms of a kernel call, its launches kept off the counts."""
+        saved = (scatter.range_launches, scatter.window_launches,
+                 rowdma.rowdma_launches,
+                 dict(scatter.range_launches_by_shape))
+        ms = event_ms(call)
+        (scatter.range_launches, scatter.window_launches,
+         rowdma.rowdma_launches, by_shape) = saved
+        scatter.range_launches_by_shape.clear()
+        scatter.range_launches_by_shape.update(by_shape)
+        return ms
+
+    def against(name, shape, got, ids, perm, g, rows, out_dtype, call):
+        want = scatter.range_scatter_add_plain(ids, perm, g, rows,
+                                               torch.float32)
+        mag = scatter.range_scatter_add_plain(ids, perm, g.abs(), rows,
+                                              torch.float32)
+        err = (got.float() - want).abs()
+        tol = 1e-6 * mag + 1e-6
+        if out_dtype == torch.bfloat16:
+            tol += BF16_TOL * want.abs()
+        n, d = ids.numel(), g.shape[1]
+        out_b = torch.finfo(out_dtype).bits // 8
+        bound = bound_ms(n * (8 + d * g.element_size()) + rows * d * out_b,
+                         n * d)[0]
+        seen.append((name, shape, float(err.max()) if err.numel() else 0.0,
+                     bool((err <= tol).all()), timed(call), bound))
+
+    def k1_held(ids, perm, g, rows, out_dtype):
+        got = k1(ids, perm, g, rows, out_dtype)
+        d = g.shape[1]
+        against(names.get((rows, d), f"K1 rows={rows} D={d}"),
+                f"{ids.numel()} of {g.shape[0]} rows -> [{rows}, {d}]", got,
+                ids, perm, g, rows, out_dtype,
+                lambda: k1(ids, perm, g, rows, out_dtype))
+        return got
+
+    def k2_held(ids, perm, g, tiles, rows, wcap, out_dtype=None):
+        got = k2(ids, perm, g, tiles, rows, wcap, out_dtype)
+        against("K2", f"{ids.numel()} of {g.shape[0]} rows, "
+                f"{tiles.shape[1]} windows -> [{rows}, {g.shape[1]}]", got,
+                ids, perm, g, rows, out_dtype or g.dtype,
+                lambda: k2(ids, perm, g, tiles, rows, wcap, out_dtype))
+        return got
+
+    def k3_held(table, uids, new_rows):
+        want = rowdma.rowdma_scatter_rows_plain(table.clone(), uids,
+                                                new_rows)
+        k3(table, uids, new_rows)
+        exact = bool(torch.equal(table, want))
+        err = 0.0 if exact else float((table - want).abs().max())
+        del want
+        # writing the same rows again leaves the shard as it is
+        ms = timed(lambda: k3(table, uids, new_rows))
+        live = int(((uids >= 0) & (uids < table.shape[0])).sum())
+        seen.append(("K3", f"{uids.numel()} uids into {list(table.shape)}",
+                     err, exact, ms,
+                     bound_ms(uids.numel() * 4 + 2 * live * new_rows.shape[1]
+                              * new_rows.element_size(), 0)[0]))
+        return table
+
+    scatter.sorted_stream_sum = k1_held
+    scatter.window_scatter_add = k2_held
+    rowdma.rowdma_scatter_rows = k3_held
+
+    def restore():
+        scatter.sorted_stream_sum, scatter.window_scatter_add = k1, k2
+        rowdma.rowdma_scatter_rows = k3
+    return restore
+
+
+def sharded_rank(spec):
+    """One rank of phase 11, in its own process (``chip_smoke.py
+    --sharded-rank``; the WDT_* variables name its rank): the train CLI
+    (``tools.train.main``) with every step's launches, CUDA-event ms,
+    exchange bytes and loss recorded, step 0's kernels held to their plain
+    versions; then ``evaluate``, and (``restore``) one device's checkpoint
+    restored into the rank, each row shard against the file's rows.  ->
+    writes its results as JSON to ``spec["out"]``."""
+    import torch
+
+    from wide_deep_tpu_torch.ops import cuda_build
+    from wide_deep_tpu_torch.parallel import exchange
+    from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+    from wide_deep_tpu_torch.tools import train as train_cli
+    from wide_deep_tpu_torch.training import checkpoint as ckpt_lib
+    from wide_deep_tpu_torch.training.loop import Trainer, resolve_checkpoint
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda_build.build()
+    steps, seen, prof = [], [], {}
+    train_batch = Trainer.train_batch
+
+    def recorded(self, batch, with_summaries=False):
+        if len(steps) == 1:
+            # steps 2 and 3 profiled, step 1 the tracer's warm-up
+            prof["p"] = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=2, repeat=1))
+            prof["p"].__enter__()
+        if not steps:
+            restore = held_to_plain_sharded(self, self.batch_size, seen)
+        names = sharded_site_names(self, self.batch_size)
+        c0 = site_counts(self, self.batch_size, names)
+        b0 = dict(mesh_lib.collective_bytes)
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        loss = train_batch(self, batch, with_summaries)
+        e1.record()
+        torch.cuda.synchronize()
+        if not steps:
+            restore()
+        d = delta(c0, site_counts(self, self.batch_size, names))
+        b = {k: v - b0.get(k, 0) for k, v in
+             mesh_lib.collective_bytes.items() if v - b0.get(k, 0)}
+        steps.append({"ms": e0.elapsed_time(e1), "loss": float(loss),
+                      "launches": nonzero(d), "bytes": b})
+        if "p" in prof and "busy_ms" not in prof:
+            prof["p"].step()
+            if len(steps) == 4:
+                prof["p"].__exit__(None, None, None)
+                kernels = sorted(filter(on_device, prof["p"].key_averages()),
+                                 key=dev_us, reverse=True)
+                prof["busy_ms"] = sum(dev_us(e) for e in kernels) / 2e3
+                prof["top"] = [f"{e.key[:50]} {dev_us(e) / 2e3:.3f}"
+                               for e in kernels[:6]]
+                # the port's kernels' device ms a step, by kernel
+                prof["ported"] = {
+                    name: round(sum(dev_us(e) for e in kernels
+                                    if name in e.key) / 2e3, 4)
+                    for name in PORTED_STEP_KERNELS}
+        return loss
+
+    Trainer.train_batch = recorded
+    t0 = time.time()
+    tr = train_cli.main(spec["argv"])
+    train_s = time.time() - t0
+    Trainer.train_batch = train_batch
+    mesh = tr.mesh
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(tr.device), "mesh": [mesh.data, mesh.model],
+           "steps": steps, "held": seen, "train_s": train_s,
+           "branches": dict(exchange.branch_counts),
+           "paths": sorted("/".join(p) for p in tr.sharded_paths),
+           "sites": sorted(set(sharded_site_names(
+               tr, tr.batch_size).values())),
+           "memory_gb": torch.cuda.max_memory_allocated(tr.device) / 1e9,
+           "device_ms": prof.get("busy_ms"), "top": prof.get("top"),
+           "ported_ms": prof.get("ported")}
+    totals = {}
+    for s in steps:
+        for k, v in s["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    out["launches"] = totals
+    if spec.get("eval_data"):
+        c0 = counts()
+        t0 = time.time()
+        out["eval"] = tr.evaluate(spec["eval_data"])
+        out["eval_s"] = time.time() - t0
+        out["eval_launches"] = nonzero(delta(c0, counts()))
+    if spec.get("restore"):
+        # one device's checkpoint into the ranks: every leaf of the rank
+        # against its rows of the file, bit for bit
+        t0 = time.time()
+        tr._restore_pinned(spec["restore"])
+        files = ckpt_lib.load_tensors(*resolve_checkpoint(spec["restore"]))
+        tree = tr._ckpt_tree()
+        names = ckpt_lib.sharded_names(tree, tr.sharded_paths)
+        bad = []
+        for name, leaf in ckpt_lib.named_leaves(tree):
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            want = files[name]
+            if name in names:
+                rows = leaf.shape[0]
+                want = want[mesh.shard * rows:(mesh.shard + 1) * rows]
+            if not torch.equal(leaf.detach().cpu(), want):
+                bad.append(name)
+        out["restored_step"] = tr.global_step
+        out["restore_bad"] = bad
+        out["restore_s"] = time.time() - t0
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def sharded_conf(tmp, name, mesh, service=""):
+    """conf/ copied to ``tmp/<name>`` for the ranks: pack_budget 3, the
+    mesh ``{data, model}``, the input service's address (or none)."""
+    import re
+    dst = os.path.join(tmp, name)
+    if not os.path.isdir(dst):
+        shutil.copytree(os.path.join(ROOT, "conf"), dst)
+    path = os.path.join(dst, "train.yaml")
+    with open(path) as f:
+        text = f.read()
+    for pat, rep in ((r"(?m)^  pack_budget:.*$", "  pack_budget: 3"),
+                     (r"(?m)^    data: .*$", f"    data: {mesh[0]}"),
+                     (r"(?m)^    model: .*$", f"    model: {mesh[1]}"),
+                     (r"(?m)^  input_service:.*$",
+                      f'  input_service: "{service}"')):
+        text, n = re.subn(pat, rep, text)
+        if n != 1:
+            raise SystemExit(f"phase 11: no {pat} in conf/train.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return dst
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(tmp, tag, conf_dir, model_dir, train_tsv, eval_tsv=None,
+              restore=None, timeout=900):
+    """``SHARDED_RANKS`` rank processes of ``chip_smoke.py --sharded-rank``
+    on the train CLI (WDT_* variables, tcp on a free local port) -> their
+    results, rank order.  Exits non-zero when a rank fails."""
+    import subprocess
+    port = free_port()
+    procs, specs = [], []
+    for r in range(SHARDED_RANKS):
+        spec = {"out": os.path.join(tmp, f"{tag}_rank{r}.json"),
+                "argv": ["--conf_dir", conf_dir, "--model_dir", model_dir,
+                         "--train_data", train_tsv, "--batch_size",
+                         str(BATCH), "--keep_train", "0", "--train_epochs",
+                         "1", "--distributed", "1"],
+                "eval_data": eval_tsv, "restore": restore}
+        env = dict(os.environ, WDT_COORDINATOR=f"127.0.0.1:{port}",
+                   WDT_NUM_PROCESSES=str(SHARDED_RANKS),
+                   WDT_PROCESS_INDEX=str(r))
+        logf = open(os.path.join(tmp, f"{tag}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--sharded-rank", json.dumps(spec)], env=env, cwd=tmp,
+            stdout=logf, stderr=subprocess.STDOUT), logf))
+        specs.append(spec)
+    deadline = time.time() + timeout
+    failed = None
+    for p, logf in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            failed = "timed out"
+        logf.close()
+        if p.returncode not in (0, None) and failed is None:
+            failed = f"exit {p.returncode}"
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if failed:
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(tmp, f"{tag}_rank{r}.log")) as f:
+                sys.stderr.write(f"--- {tag} rank {r}:\n{f.read()[-6000:]}\n")
+        raise SystemExit(f"phase 11: {tag}: a rank {failed}")
+    out = []
+    for spec in specs:
+        with open(spec["out"]) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_rank_steps(tag, res):
+    """Each rank's steps launched the sharded sites (``SITES_SHARDED``; on
+    the d16 stream K2, or K1 when the plan row says ok=0), held step 0's
+    kernels to their plain versions, and the ranks' losses are the same
+    bits."""
+    for r in res:
+        for i, s in enumerate(r["steps"]):
+            d = dict(s["launches"])
+            for k in ("K1", "K2", "K3", "d16 ok=0", "P1", "P2"):
+                d.setdefault(k, 0)
+            check_sites(f"phase 11: {tag} rank {r['rank']} step {i}", d,
+                        SITES_SHARDED)
+        sites = {}
+        for site, *_ in r["held"]:
+            sites[site] = sites.get(site, 0) + 1
+        ok_of = [h[3] for h in r["held"]]
+        want = dict(SITES_SHARDED)
+        ok0 = r["steps"][0]["launches"].get("d16 ok=0", 0)
+        if ok0:
+            want["K1 d16 ok=0"] = 1
+        else:
+            want["K2"] = 1
+        if sites != want or not all(ok_of):
+            raise SystemExit(f"phase 11: {tag} rank {r['rank']} step 0's "
+                             f"kernels {r['held']}, want sites {want}")
+        log(f"phase 11: {tag} rank {r['rank']} ({r['device']}, "
+            f"{r['backend']}) step 0's launches against their plain "
+            f"versions on the per-shard inputs (event ms, bound ms): " +
+            "; ".join(f"{site} ({shape}) max_abs_err {err:.3g} ok, "
+                      f"{ms:.4f} ms, bound {bound:.4f}"
+                      for site, shape, err, _, ms, bound in r["held"]))
+    losses = [[s["loss"] for s in r["steps"]] for r in res]
+    if any(x != losses[0] for x in losses[1:]):
+        raise SystemExit(f"phase 11: {tag}: the ranks' losses differ: "
+                         f"{losses}")
+    return losses[0]
+
+
+def state_rel_diff(dir_a, step_a, dir_b, step_b):
+    """{leaf: max |a - b| / max |b|} of two checkpoints' tensors."""
+    import torch
+
+    from wide_deep_tpu_torch.training.checkpoint import load_tensors
+    a, b = load_tensors(dir_a, step_a), load_tensors(dir_b, step_b)
+    if sorted(a) != sorted(b):
+        raise SystemExit(f"phase 11: the checkpoints' leaves differ: "
+                         f"{sorted(set(a) ^ set(b))}")
+    out = {}
+    for k in a:
+        if a[k].shape != b[k].shape:
+            raise SystemExit(f"phase 11: {k}: {a[k].shape} vs {b[k].shape}")
+        if not a[k].is_floating_point():
+            out[k] = 0.0 if torch.equal(a[k], b[k]) else float("inf")
+            continue
+        x, y = a[k].float(), b[k].float()
+        scale = float(y.abs().max()) or 1.0
+        out[k] = float((x - y).abs().max()) / scale
+    return out
+
+
+def phase_sharded(card, tmp):
+    """Phase 11: the production model trained across ranks (module
+    docstring) -> each rank's launches on the sharded path, rank order."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.parallel.mesh import placement
+    from wide_deep_tpu_torch.training.checkpoint import (committed_steps,
+                                                         load_tensors,
+                                                         named_leaves)
+    from wide_deep_tpu_torch.training.loop import Trainer
+
+    t_phase = time.time()
+    n_cards = torch.cuda.device_count()
+    _, _, per_card = placement(0, SHARDED_RANKS, n_cards=n_cards)
+    conf_dir = sharded_conf(tmp, "conf_sharded", (SHARDED_RANKS, 1))
+    config = Config(conf_dir)
+    train_tsv = os.path.join(tmp, "sharded_train.tsv")
+    eval_tsv = os.path.join(tmp, "sharded_eval.tsv")
+    t0 = time.time()
+    testing.generate_ctr_tsv(config, train_tsv, SHARDED_STEPS * BATCH,
+                             seed=11, hash_spread=None)
+    testing.generate_ctr_tsv(config, eval_tsv, BATCH, seed=12,
+                             hash_spread=None)
+    gen_s = time.time() - t0
+
+    # one device: the same weights (the seed's draw), the same global
+    # batches, then its checkpoint
+    one_dir = os.path.join(tmp, "one")
+    tr = Trainer(config, "wide_deep", model_dir=one_dir,
+                 overrides={"batch_size": BATCH, "train_data": train_tsv,
+                            "keep_train": False}, device="cuda")
+    tr.ensure_initialized(restore=False)
+    one_ms, one_losses = [], []
+    train_batch = tr.train_batch
+
+    def timed(batch, with_summaries=False):
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        loss = train_batch(batch, with_summaries)
+        e1.record()
+        torch.cuda.synchronize()
+        one_ms.append(e0.elapsed_time(e1))
+        one_losses.append(float(loss))
+        return loss
+    tr.train_batch = timed
+    tr.train_file(train_tsv)
+    one_eval = tr.evaluate(eval_tsv)
+    tr.save()
+    one_dir = tr.model_dir
+    del tr, train_batch
+    release()
+    log(f"phase 11: one device: {len(one_losses)} steps of {BATCH} rows "
+        f"(median {float(np.median(one_ms[1:])):.2f} ms by CUDA events), "
+        f"losses {one_losses}; AUC {one_eval['auc']:.6f}, logloss "
+        f"{one_eval['average_loss']:.6f}; generated the TSVs in "
+        f"{gen_s:.1f} s")
+
+    # the input service and the ranks on its slices
+    server = subprocess.Popen(
+        [sys.executable, "-m", "wide_deep_tpu_torch.tools.input_server",
+         "--conf_dir", conf_dir, "--port", "0", "--n_devices",
+         str(SHARDED_RANKS), "--n_procs", str(SHARDED_RANKS),
+         "--train_data", train_tsv, "--batch_size", str(BATCH)],
+        cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        line, deadline = "", time.time() + 120
+        while time.time() < deadline and "table shards)" not in line:
+            line = server.stdout.readline()
+            if not line and server.poll() is not None:
+                raise SystemExit("phase 11: the input server exited")
+        port = int(line.split("input service on :")[1].split()[0])
+        log(f"phase 11: {line.strip()}")
+        threading_drain(server)
+        sharded_conf(tmp, "conf_sharded", (SHARDED_RANKS, 1),
+                     f"127.0.0.1:{port}")
+        ranks_dir = os.path.join(tmp, "ranks")
+        res = run_ranks(tmp, "data2", conf_dir, ranks_dir, train_tsv,
+                        eval_tsv, restore=os.path.join(
+                            one_dir, str(committed_steps(one_dir)[-1])))
+    finally:
+        server.kill()
+        server.wait()
+    losses = check_rank_steps("{data: 2, model: 1}", res)
+    if len(losses) != SHARDED_STEPS:
+        raise SystemExit(f"phase 11: the ranks took {len(losses)} steps")
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    for r in res:
+        ms = [s["ms"] for s in r["steps"]]
+        per_step = r["steps"][-1]["bytes"]
+        log(f"phase 11: rank {r['rank']} on {r['device']} over "
+            f"{r['backend']} ({per_card} ranks a card): step ms by CUDA "
+            f"events {[round(x, 2) for x in ms]} (median of steps 1-"
+            f"{len(ms) - 1}: {float(np.median(ms[1:])):.2f}); device busy "
+            f"{r['device_ms']:.3f} ms a step (profiler, steps 2-3; top "
+            f"{r['top']}; the port's kernels {r['ported_ms']}); exchange "
+            f"bytes a step {per_step} (sum {sum(per_step.values())}); "
+            f"live-cap / full / exact branches {r['branches']}; launches "
+            f"{r['launches']}; peak {r['memory_gb']:.2f} GB; row-sharded "
+            f"{r['paths']}")
+    # the ranks against one device: losses, evaluate, whole state
+    e0, e1 = res[0]["eval"], one_eval
+    eval_gap = max(abs(e0[k] - e1[k]) for k in ("auc", "average_loss"))
+    ranks_dir_m = os.path.join(ranks_dir, "wide_deep")
+    r_step = committed_steps(ranks_dir_m)[-1]
+    o_step = committed_steps(one_dir)[-1]
+    diffs = state_rel_diff(ranks_dir_m, r_step, one_dir, o_step)
+    worst = sorted(diffs.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 11: ranks vs one device: losses {losses} (worst relative "
+        f"{worst_loss:.3e}, bar {SHARDED_LOSS_TOL:.3e}); evaluate AUC "
+        f"{e0['auc']:.6f} vs {e1['auc']:.6f}, logloss "
+        f"{e0['average_loss']:.6f} vs {e1['average_loss']:.6f} (worst "
+        f"{eval_gap:.3e}, bar {SHARDED_EVAL_TOL}), the same on both ranks: "
+        f"{res[0]['eval'] == res[1]['eval']}, launches "
+        f"{res[0]['eval_launches'] or 'none'}; step {r_step}'s state, "
+        f"worst leaves (max |diff| / max |leaf|) "
+        f"{[(k, f'{v:.3e}') for k, v in worst]}, bar "
+        f"{SHARDED_STATE_TOL:.3e}")
+    if (worst_loss > SHARDED_LOSS_TOL or eval_gap > SHARDED_EVAL_TOL
+            or res[0]["eval"] != res[1]["eval"]
+            or max(diffs.values()) > SHARDED_STATE_TOL or r_step != o_step):
+        raise SystemExit("phase 11: the ranks left one device's results")
+    # 1 -> N: each rank restored one device's checkpoint to its own rows
+    for r in res:
+        if r["restore_bad"] or r["restored_step"] != o_step:
+            raise SystemExit(f"phase 11: rank {r['rank']} restored step "
+                             f"{r['restored_step']} with {r['restore_bad']}"
+                             f" unlike the file")
+    # N -> 1: one device restores the ranks' checkpoint, bit for bit
+    t0 = time.time()
+    tr = Trainer(config, "wide_deep", model_dir=ranks_dir,
+                 overrides={"batch_size": BATCH}, device="cuda")
+    tr.ensure_initialized(restore=True)
+    files = load_tensors(ranks_dir_m, r_step)
+    gb = sum(t.nbytes for t in files.values()) / 1e9
+    bad = [n for n, leaf in named_leaves(tr._ckpt_tree())
+           if isinstance(leaf, torch.Tensor)
+           and not torch.equal(leaf.detach().cpu(), files[n])]
+    log(f"phase 11: checkpoints: one device's step {o_step} restored into "
+        f"each rank's rows bit for bit ({res[0]['restore_s']:.1f} s); the "
+        f"ranks' step {r_step} ({gb:.2f} GB, written by rank 0) restored "
+        f"into one device bit for bit: "
+        f"{not bad and tr.global_step == r_step} ({time.time() - t0:.1f} s)")
+    if bad or tr.global_step != r_step:
+        raise SystemExit(f"phase 11: N -> 1 restore differs in {bad}")
+    del tr, files
+    release()
+
+    # the model axis: {data: 1, model: 2}, every rank reading the global
+    # batch (its plan row of it), no input service
+    conf_m = sharded_conf(tmp, "conf_model_axis", (1, SHARDED_RANKS))
+    res_m = run_ranks(tmp, "model2", conf_m, os.path.join(tmp, "ranks_m"),
+                      train_tsv)
+    losses_m = check_rank_steps("{data: 1, model: 2}", res_m)
+    worst_m = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses_m, one_losses))
+    log(f"phase 11: {{data: 1, model: 2}}: losses {losses_m} against one "
+        f"device's {one_losses} (worst relative "
+        f"{worst_m:.3e}); step ms "
+        f"{[round(s['ms'], 2) for s in res_m[0]['steps']]}; exchange bytes a step {res_m[0]['steps'][-1]['bytes']}")
+    if len(losses_m) != SHARDED_STEPS or worst_m > SHARDED_LOSS_TOL:
+        raise SystemExit("phase 11: the model axis left one device's losses")
+    if n_cards >= SHARDED_RANKS:
+        res_n = run_ranks(tmp, "nccl", conf_m, os.path.join(tmp, "ranks_n"),
+                          train_tsv)
+        losses_n = check_rank_steps("NCCL, a card each", res_n)
+        log(f"phase 11: NCCL ranks on {[r['device'] for r in res_n]}: "
+            f"losses {losses_n}")
+    else:
+        log(f"phase 11: one card ({n_cards}): the NCCL ranks on separate "
+            f"cards did not run")
+    log(f"phase 11 in {time.time() - t_phase:.1f} s")
+    return [r["launches"] for r in res]
+
+
+def threading_drain(proc):
+    """Read a child's remaining output in a thread, so it never blocks on a
+    full pipe."""
+    import threading
+    threading.Thread(target=proc.stdout.read, daemon=True).start()
+
+
 def count_key(name):
     """A kernels-line row's counter: "K1 range_scatter_add d8" -> "K1 d8",
     "K3 rowdma_scatter_rows d32" -> "K3", "P2 bulk_scatter_rows f32" ->
@@ -2836,6 +3452,11 @@ def main():
     import gc
 
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-rank":
+        # one rank of phase 11, started by phase_sharded
+        sys.path.insert(0, ROOT)
+        sharded_rank(json.loads(sys.argv[2]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2910,6 +3531,8 @@ def main():
         phase_quality(card, tmp)
         release()
         cnn_counts = phase_cnn(card, tmp)
+        release()
+        sharded = phase_sharded(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2921,6 +3544,9 @@ def main():
         if not row["name"].startswith("P"):
             row["launches_cli"] = cli_counts.get(count_key(row["name"]), 0)
             row["launches_cnn"] = cnn_counts.get(count_key(row["name"]), 0)
+            # each rank's launches on the sharded path (phase 11)
+            row["launches_sharded"] = [s.get(count_key(row["name"]), 0)
+                                       for s in sharded]
         if "bf16" in row:
             row["bf16"]["launches"] = tool_counts["P2 bf16"]
     if not all(row["launches"] > 0 for row in kernels):
@@ -2931,6 +3557,13 @@ def main():
     if not all(cnn_counts.get(k, 0) > 0 for k, v in
                SITES_QUALITY["wide_deep"].items() if v):
         raise SystemExit(f"a kernel never ran on the CNN path: {cnn_counts}")
+    # the sharded path's kernels: K1 at each of its sites, K3, and on the
+    # d16 stream K2 or (ok=0) K1
+    if not all(all(s.get(k, 0) > 0 for k in SITES_SHARDED)
+               and s.get("K2", 0) + s.get("K1 d16 ok=0", 0) > 0
+               for s in sharded):
+        raise SystemExit(f"a kernel never ran on the sharded path: "
+                         f"{sharded}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -213,13 +213,17 @@ def test_distributed_launch_raises(tmp_path, monkeypatch):
     from wide_deep_tpu_torch.tools import train
     from wide_deep_tpu_torch.tools.common import maybe_init_distributed
     argv = _setup(tmp_path, monkeypatch)
+    # a launch of 4 processes whose index lies outside them raises before
+    # any rendezvous (a 4-rank launch itself: tests/test_torch_distributed)
     monkeypatch.setenv("WDT_COORDINATOR", "localhost:1234")
     monkeypatch.setenv("WDT_NUM_PROCESSES", "4")
-    with pytest.raises(NotImplementedError, match="4 processes"):
+    monkeypatch.setenv("WDT_PROCESS_INDEX", "4")
+    with pytest.raises(ValueError, match="4 processes"):
         train.main(argv)
     assert not os.path.exists(tmp_path / "m")
     monkeypatch.delenv("WDT_COORDINATOR")
     monkeypatch.delenv("WDT_NUM_PROCESSES")
+    monkeypatch.delenv("WDT_PROCESS_INDEX")
     conf = Config(argv[1])
     assert not maybe_init_distributed(conf)["is_distribution"]
     dist = maybe_init_distributed(conf, force=True)  # one process: runs

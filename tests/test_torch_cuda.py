@@ -1192,3 +1192,144 @@ def test_cuda_cnn_forward_backward_is_deterministic(cuda_device, model,
             assert torch.equal(_bits(s0[k][s]), _bits(s1[k][s])), (k, s)
     for p in g0:
         assert torch.equal(_bits(g0[p]), _bits(g1[p])), p
+
+
+# ------------------------------------------------ per-shard plans (ranks)
+SHARD_CASES = [("range", "uniform", 20000, 9, torch.bfloat16),
+               ("range", "skewed", 20000, 9, torch.float32),
+               ("window", "uniform", 60000, 17, torch.bfloat16),
+               ("window", "hot_window", 60000, 17, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("mode,kind,rows,d,dtype", SHARD_CASES)
+def test_cuda_per_shard_plans_match_plain(cuda_device, mode, kind, rows, d,
+                                          dtype, shards):
+    """Each shard's row of a per-shard range or window plan, summed on the
+    card as a rank sums it (parallel/exchange.planned_shard_sum: K1 over
+    the live prefix, K2 under the windows, K1 over the masked local ids
+    sorted on the card when the row says ok=0) against the plain version
+    of the same inputs on the host."""
+    from wide_deep_tpu_torch.parallel.exchange import planned_shard_sum
+    rng = np.random.default_rng(rows + d + shards)
+    n = 6000
+    ids = _ids(kind, n, rows, rng)
+    w = _weights(n, rng)
+    make = (tsc.make_sharded_window_plan if mode == "window"
+            else tsc.make_sharded_scatter_plan)
+    plan = make(ids, rows, shards, w)
+    g = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    g[torch.from_numpy(w == 0)] = 0.0
+    g = g.to(dtype)
+    shard_rows = rows // shards
+    for s in range(shards):
+        row = {k: (int(v[s]) if k in ("ok", "live")
+                   else torch.from_numpy(v[s]))
+               for k, v in plan.items()}
+        local = torch.from_numpy(ids.astype(np.int64) - s * shard_rows)
+        want = planned_shard_sum(row, g, local, shard_rows, n, shards,
+                                 dtype).float()
+        mag = planned_shard_sum(row, g.abs(), local, shard_rows, n, shards,
+                                torch.float32)
+        card = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+                for k, v in row.items()}
+        got = planned_shard_sum(card, g.to(cuda_device),
+                                local.to(cuda_device), shard_rows, n,
+                                shards, dtype)
+        again = planned_shard_sum(card, g.to(cuda_device),
+                                  local.to(cuda_device), shard_rows, n,
+                                  shards, dtype)
+        assert torch.equal(got, again)
+        tol = 1e-6 * mag + 1e-6
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_ULP * want.abs()
+        assert ((got.float().cpu() - want).abs() <= tol).all(), (mode, kind,
+                                                                 s)
+    if kind == "hot_window":
+        assert plan["ok"][0] == 0
+
+
+class _Shard:
+    """A rank's place for apply_fused_sharded_update without collectives:
+    shard ``shard`` of ``world``, its cotangent already whole."""
+
+    def __init__(self, shard, world):
+        self.shard, self.world, self.data_group = shard, world, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_fused_sharded_update_matches_cpu(cuda_device, shards):
+    """A shard's fused update on the card (K1 into the compact space with
+    rows = cap over the live entries, the row formula, K3 into the shard)
+    against the same update on the host, bit for bit: the gradients are
+    multiples of 1/64 (their float32 sums exact in any order) and the row
+    formula gives the host's bits on the card (PR 11)."""
+    from wide_deep_tpu_torch.optim import sparse as sp
+    rng = np.random.default_rng(shards)
+    rows, dim, n = 40000, 32, 5000
+    ids = (rng.zipf(1.2, n) % rows).astype(np.int32)
+    plan = tsc.make_sharded_compact_plan(ids, rows, shards)
+    fused = np.zeros((rows, 128), np.float32)
+    fused[:, :dim] = rng.normal(size=(rows, dim)) * 0.1
+    fused[:, dim:2 * dim] = 0.1
+    g = (rng.integers(-64, 64, (n, dim)) / 64.0).astype(np.float32)
+    table = sp.SparseTable(name="t", path=("t",), ids_key="ids",
+                           spec={"name": "Adagrad"}, lr=0.05, dim=dim,
+                           fused=True)
+    per = rows // shards
+
+    def update(s, row, dev):
+        shard = torch.from_numpy(fused[s * per:(s + 1) * per].copy()).to(dev)
+        sp.apply_fused_sharded_update(
+            table, shard, torch.from_numpy(g).to(dev),
+            torch.from_numpy(ids).to(dev),
+            {k: (v.to(dev) if torch.is_tensor(v) else v)
+             for k, v in row.items()}, {"count": 0}, _Shard(s, shards))
+        return shard.cpu()
+
+    for s in range(shards):
+        row = {k: (int(v[s]) if k in ("ok", "live")
+                   else torch.from_numpy(v[s]))
+               for k, v in plan.items()}
+        host, card = update(s, row, "cpu"), update(s, row, cuda_device)
+        assert torch.equal(card, host), s
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card run the exchange's cases (tests/
+    test_torch_exchange.py) with K1 / K2 on their own shards: the same
+    rows and, within the CPU tests' bound, the same gradients as two ranks
+    on the host."""
+    from torch_rank_cases import run_ranks
+    cases = []
+    for i, (mode, dtype) in enumerate((("range", "float32"),
+                                       ("window", "bfloat16"),
+                                       (None, "float32"))):
+        rng = np.random.default_rng(i)
+        rows, d, b, p = 8192, 16, 256, 8
+        ids = rng.integers(0, rows, (b, p)).astype(np.int32)
+        plan = None
+        if mode:
+            make = (tsc.make_sharded_window_plan if mode == "window"
+                    else tsc.make_sharded_scatter_plan)
+            plan = make(ids.reshape(-1), rows, 2)
+        table = torch.from_numpy(rng.normal(size=(rows, d)).astype(
+            np.float32)).to(getattr(torch, dtype)).float().numpy()
+        cases.append({"name": f"{mode}_{dtype}", "mesh": (2, 1),
+                      "kind": "planned" if mode else "explicit",
+                      "table": table, "ids": ids, "dtype": dtype,
+                      "cot": rng.normal(size=(b, p, d)).astype(np.float32),
+                      "plan": plan})
+    host = run_ranks("exchange", 2, tmp_path, cases)
+    card = run_ranks("exchange", 2, tmp_path, cases, device="cuda")
+    for i, c in enumerate(cases):
+        for h, k in zip(host, card):
+            np.testing.assert_array_equal(k[i]["out"], h[i]["out"])
+            bound = 1e-6 * np.abs(h[i]["grad"]) + 1e-5
+            if c.get("dtype") == "bfloat16":
+                bound = bound + BF16_ULP * np.abs(h[i]["grad"])
+            assert (np.abs(k[i]["grad"] - h[i]["grad"]) <= bound).all(), (
+                c["name"])

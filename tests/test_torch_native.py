@@ -211,8 +211,14 @@ def test_failed_compile_raises(monkeypatch, tmp_path):
 
 
 def test_sharded_plan_is_refused(conf_dir):
+    """Per-shard range, window and compact plans are ported (tests/
+    test_torch_parallel.py holds them to the JAX package's); a plan for
+    the dedup exchange, which is not, is refused when a train batch would
+    carry it."""
     from wide_deep_tpu_torch.features.native import NativeTransformer
-    _, tp = plan_pair(conf_dir)
-    tp.scatter_shards = 2
-    with pytest.raises(NotImplementedError):
-        NativeTransformer(tp)
+    _, tp = plan_pair(conf_dir, scatter_shards=2, shard_threshold=1)
+    tnt = NativeTransformer(tp)
+    tp.shard_kind = "dedup"
+    text = "\n".join("\t".join(r) for r in train_rows(8)).encode("utf-8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnt.transform_text(text, 8, 8, "train")

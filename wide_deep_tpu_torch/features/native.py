@@ -229,9 +229,6 @@ class NativeTransformer:
                  pos_weight: Optional[float] = None,
                  neg_weight: Optional[float] = None,
                  n_threads: int = 0):
-        if plan.scatter_shards > 1:
-            raise NotImplementedError(
-                "per-table-shard (multi-GPU) plans are not ported yet")
         self.plan = plan
         self.n_classes = n_classes
         self.pos_weight = pos_weight
@@ -251,9 +248,6 @@ class NativeTransformer:
         rows.  Lines with the wrong number of cells are skipped (pred mode
         also takes lines without the label column).  ``n_rows_hint`` is
         unused: it keeps the JAX package's signature."""
-        from wide_deep_tpu_torch.ops.scatter import (compact_plan_spec,
-                                                     scatter_batch_spec,
-                                                     window_batch_spec)
         plan = self.plan
         B = batch_size
         out: Dict[str, np.ndarray] = {
@@ -285,25 +279,24 @@ class NativeTransformer:
             out["cont"] = cont
 
         # train mode: the kernel plans of the big groups (ops/scatter.py),
-        # range, window and compact, in the order fastdata.cc fills them
+        # range, window and compact, in the order fastdata.cc fills them;
+        # per table shard (a leading [n_shards] axis, plus ``ok`` / ``live``
+        # flags) when the plan has scatter_shards > 1 (format v12, the JAX
+        # package's features/native.py:39-73)
         masks = {"scat": 0, "wscat": 0, "sopt": 0}
         if mode == "train":
-            kinds = (("scat", plan.scatter_group,
-                      lambda n, g: scatter_batch_spec(n, g.rows)),
-                     ("wscat", plan.window_group,
-                      lambda n, g: window_batch_spec(n, g.rows)),
-                     ("sopt", plan.sparse_opt_group,
-                      lambda n, g: compact_plan_spec(n)))
+            if any(plan.dedup_group(g, B) for g in plan.groups):
+                raise NotImplementedError(
+                    "dedup-exchange plans are not ported yet (ROADMAP.md "
+                    "Queue 1)")
+            per_kind: Dict[str, list] = {k: [] for k in masks}
             for gi, g in enumerate(plan.groups):
-                if plan.dedup_group(g, B):
-                    raise NotImplementedError(
-                        "dedup-exchange plans are not ported yet")
-            for prefix, wanted, spec_of in kinds:
-                for gi, g in enumerate(plan.groups):
-                    if not wanted(g, B):
-                        continue
+                n_ids = B * plan.group_packed_len[g.dim]
+                for prefix, spec in plan._plan_specs(g, n_ids, B):
                     masks[prefix] |= 1 << gi
-                    spec = spec_of(B * plan.group_packed_len[g.dim], g)
+                    per_kind[prefix].append((g, spec))
+            for prefix, entries in per_kind.items():
+                for g, spec in entries:
                     for key in ("uids", "ids", "perm", "tiles", "ok",
                                 "live"):
                         if key in spec:

@@ -54,24 +54,28 @@ def train_plans(plan: FeaturePlan, g, batch_size: int, ids: np.ndarray,
                 wts: np.ndarray) -> Batch:
     """The kernel plans a train batch carries for dim group ``g``: a range
     plan (``scat_*``), a window plan (``wscat_*``) and/or a compact plan for
-    the fused sparse optimizer (``sopt_*``), as the plan's gates decide.
-    Weights route zero-gradient pool padding out of the range and window
-    streams."""
-    from wide_deep_tpu_torch.ops.scatter import (make_compact_plan,
-                                                 make_scatter_plan,
-                                                 make_window_plan)
+    the fused sparse optimizer (``sopt_*``), as the plan's gates decide;
+    per table shard when the plan has ``scatter_shards > 1`` (the JAX
+    package's features/pipeline.py:300-360).  Weights route zero-gradient
+    pool padding out of the range and window streams."""
+    from wide_deep_tpu_torch.ops import scatter as sc
     out: Batch = {}
     flat_ids, flat_wts = ids.reshape(-1), wts.reshape(-1)
+    s = plan.scatter_shards
     if plan.scatter_group(g, batch_size):
-        for key, arr in make_scatter_plan(flat_ids, g.rows,
-                                          flat_wts).items():
+        sp = (sc.make_sharded_scatter_plan(flat_ids, g.rows, s, flat_wts)
+              if s > 1 else sc.make_scatter_plan(flat_ids, g.rows, flat_wts))
+        for key, arr in sp.items():
             out[f"scat_{key}_d{g.dim}"] = arr
     if plan.window_group(g, batch_size):
-        for key, arr in make_window_plan(flat_ids, g.rows,
-                                         flat_wts).items():
+        wp = (sc.make_sharded_window_plan(flat_ids, g.rows, s, flat_wts)
+              if s > 1 else sc.make_window_plan(flat_ids, g.rows, flat_wts))
+        for key, arr in wp.items():
             out[f"wscat_{key}_d{g.dim}"] = arr
     if plan.sparse_opt_group(g, batch_size):
-        for key, arr in make_compact_plan(flat_ids, g.rows).items():
+        cp = (sc.make_sharded_compact_plan(flat_ids, g.rows, s)
+              if s > 1 else sc.make_compact_plan(flat_ids, g.rows))
+        for key, arr in cp.items():
             out[f"sopt_{key}_d{g.dim}"] = arr
     return out
 

@@ -214,13 +214,13 @@ class FeaturePlan:
         # batches additionally carry a host-built scatter plan (sorted ids +
         # permutation + range/window tiles) per big dim group so the
         # backward runs the hand-written scatter kernels of ops/scatter.py.
-        # scatter_shards > 1 (per-table-shard plans for several devices) is
-        # not ported yet.
+        # scatter_shards > 1: the plans are emitted PER TABLE SHARD (one
+        # localized stream per rank, ops/scatter.make_sharded_*_plan) for
+        # the exchange's backward and the sharded fused optimizer
+        # (parallel/exchange.py, optim/sparse.py); only groups whose tables
+        # row-shard (parallel/mesh.param_shardings' rule) carry them.
         self.pallas_scatter = bool(pallas_scatter)
         self.scatter_shards = int(scatter_shards)
-        if self.scatter_shards > 1:
-            raise NotImplementedError(
-                "per-table-shard (multi-GPU) plans are not ported yet")
         self.shard_threshold = int(SHARD_THRESHOLD if shard_threshold is None
                                    else shard_threshold)
         # shard_kind (scatter_shards > 1): 'scatter' emits per-shard kernel
@@ -229,6 +229,10 @@ class FeaturePlan:
         if shard_kind not in ("scatter", "dedup"):
             raise ValueError(f"shard_kind must be scatter|dedup, "
                              f"got {shard_kind!r}")
+        if shard_kind == "dedup" and self.scatter_shards > 1:
+            raise NotImplementedError(
+                "the dedup exchange (sharded_lookup: dedup) is not ported "
+                "yet (ROADMAP.md Queue 1); use sharded_lookup: explicit")
         self.shard_kind = shard_kind
         # sparse_opt: batches additionally carry a compact (dedup) scatter
         # plan per huge dim group (ops/scatter.make_compact_plan) so the
@@ -500,6 +504,24 @@ class FeaturePlan:
         return (g.rows >= sparse_lib.SPARSE_MIN_ROWS
                 and (1 + self.sparse_slots) * g.dim <= FUSED_WIDTH)
 
+    def _plan_specs(self, g: "DimGroup", n_ids: int, batch_size: int):
+        """(batch key prefix, spec) of each kernel plan a train batch
+        carries for group ``g``: range (``scat``), window (``wscat``),
+        compact (``sopt``); per table shard when ``scatter_shards > 1``."""
+        from wide_deep_tpu_torch.ops import scatter as sc
+        s = self.scatter_shards
+        out = []
+        if self.scatter_group(g, batch_size):
+            out.append(("scat", sc.sharded_scatter_batch_spec(n_ids, g.rows, s)
+                        if s > 1 else sc.scatter_batch_spec(n_ids, g.rows)))
+        if self.window_group(g, batch_size):
+            out.append(("wscat", sc.sharded_window_batch_spec(n_ids, g.rows, s)
+                        if s > 1 else sc.window_batch_spec(n_ids, g.rows)))
+        if self.sparse_opt_group(g, batch_size):
+            out.append(("sopt", sc.sharded_compact_plan_spec(n_ids, s)
+                        if s > 1 else sc.compact_plan_spec(n_ids)))
+        return out
+
     # ------------------------------------------------------------- descriptors
     def batch_spec(self, batch_size: int, n_classes: int = 2,
                    with_image: bool = False,
@@ -520,18 +542,10 @@ class FeaturePlan:
             spec[f"emb_ids_d{g.dim}"] = ((B, P), np.int32)
             spec[f"emb_wts_d{g.dim}"] = ((B, P), np.float32)
             spec[f"emb_seg_d{g.dim}"] = ((B, P), np.int32)
-            if mode == "train" and self.scatter_group(g, B):
-                from wide_deep_tpu_torch.ops.scatter import scatter_batch_spec
-                for key, sd in scatter_batch_spec(B * P, g.rows).items():
-                    spec[f"scat_{key}_d{g.dim}"] = sd
-            if mode == "train" and self.window_group(g, B):
-                from wide_deep_tpu_torch.ops.scatter import window_batch_spec
-                for key, sd in window_batch_spec(B * P, g.rows).items():
-                    spec[f"wscat_{key}_d{g.dim}"] = sd
-            if mode == "train" and self.sparse_opt_group(g, B):
-                from wide_deep_tpu_torch.ops.scatter import compact_plan_spec
-                for key, sd in compact_plan_spec(B * P).items():
-                    spec[f"sopt_{key}_d{g.dim}"] = sd
+            if mode == "train":
+                for prefix, sd_spec in self._plan_specs(g, B * P, B):
+                    for key, sd in sd_spec.items():
+                        spec[f"{prefix}_{key}_d{g.dim}"] = sd
         if self.indicator_total_len:
             spec["ind_ids"] = ((B, self.indicator_total_len), np.int32)
             spec["ind_wts"] = ((B, self.indicator_total_len), np.float32)

@@ -15,6 +15,13 @@ The port of wide_deep_tpu/models/deep.py on one device:
   (the step's "sinks"), never to a dense [rows, D] table gradient.
 * Towers: the five named connectivity modes plus ``i-j`` connection lists,
   masked train-mode BatchNorm with moving statistics, dropout.
+* On a mesh of ranks (``shard``: the mesh and the row-sharded param paths,
+  parallel/exchange.enable_explicit_lookup) every gather from a row-sharded
+  table goes through the exchange (JAX ``table_gather``, deep.py:384-411
+  there), with the rank's per-shard plan row when the batch carries one;
+  replicated tables sum their gradient in a fixed order (K1 over the
+  stably sorted ids on the card); BatchNorm's masked moments are taken over
+  the global batch (an all-reduce over 'data', deep.py:568-580 there).
 
 Parameters are plain nested dicts of tensors with the JAX package's key
 paths (``embed/d<dim>``, ``towers/<i>/{hidden,bn,logits}``); BN state is
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 
 from wide_deep_tpu_torch.features.plan import FeaturePlan
 from wide_deep_tpu_torch.models.activations import activation_fn
+from wide_deep_tpu_torch.parallel import exchange
 
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
@@ -232,12 +240,15 @@ class FusedGatherSplit(torch.autograd.Function):
     over the [N, D + n] cotangent in the table's dtype, split after — so
     with a bfloat16 table the wide columns' sums are rounded to bfloat16, as
     in the JAX package's planned path; without a plan, ``index_add_`` per
-    param in its own dtype."""
+    param in its own dtype (``sorted_sum``: in float32 over the stably
+    sorted ids, rounded once, parallel/exchange.exact_shard_sum: on the
+    card K1, the same bits on every call)."""
 
     @staticmethod
-    def forward(ctx, table, fcol, ids, scat):
+    def forward(ctx, table, fcol, ids, scat, sorted_sum=False):
         ctx.save_for_backward(ids)
         ctx.scat = scat
+        ctx.sorted_sum = sorted_sum
         ctx.shapes = (table.shape, table.dtype, fcol.shape, fcol.dtype)
         fused = torch.cat([table, fcol.to(table.dtype)], dim=1)
         full = fused.index_select(0, ids)
@@ -252,12 +263,18 @@ class FusedGatherSplit(torch.autograd.Function):
             g = torch.cat([ct_emb.to(t_dtype), ct_wide.to(t_dtype)], dim=1)
             dense = _scatter_by_plan(ctx.scat, g, t_shape[0], t_dtype)
             d = t_shape[1]
-            return dense[:, :d], dense[:, d:].to(f_dtype), None, None
+            return dense[:, :d], dense[:, d:].to(f_dtype), None, None, None
+        if ctx.sorted_sum:
+            return (exchange.exact_shard_sum(ids, ct_emb, t_shape[0],
+                                             t_dtype),
+                    exchange.exact_shard_sum(ids, ct_wide, f_shape[0],
+                                             f_dtype),
+                    None, None, None)
         d_table = torch.zeros(t_shape, dtype=t_dtype, device=ids.device)
         d_table.index_add_(0, ids, ct_emb.to(t_dtype))
         d_fcol = torch.zeros(f_shape, dtype=f_dtype, device=ids.device)
         d_fcol.index_add_(0, ids, ct_wide.to(f_dtype))
-        return d_table, d_fcol, None, None
+        return d_table, d_fcol, None, None, None
 
 
 class GatherWithPlan(torch.autograd.Function):
@@ -277,6 +294,29 @@ class GatherWithPlan(torch.autograd.Function):
         shape, dtype = ctx.shape
         return (_scatter_by_plan(ctx.scat, ct.to(dtype), shape[0], dtype),
                 None, None)
+
+
+def shard_plan_of(batch, dim: int):
+    """The rank's row of the group's per-shard range (``scat_*``) or window
+    (``wscat_*``) plan: ids, perm and tiles on the device, ``ok`` and
+    ``live`` as host ints; None when the batch carries none."""
+    for prefix in ("scat", "wscat"):
+        if f"{prefix}_ok_d{dim}" in batch and (
+                batch[f"{prefix}_tiles_d{dim}"].dim() == 3):
+            return plan_row(batch, prefix, dim)
+    return None
+
+
+def plan_row(batch, prefix: str, dim: int) -> Dict[str, Any]:
+    """A per-shard plan's row from a rank's batch: its [1, ...] arrays
+    without the leading axis, ``ok`` and ``live`` as ints."""
+    out: Dict[str, Any] = {}
+    for k in ("uids", "ids", "perm", "tiles", "ok", "live"):
+        v = batch.get(f"{prefix}_{k}_d{dim}")
+        if v is None:
+            continue
+        out[k] = int(v.reshape(-1)[0]) if k in ("ok", "live") else v[0]
+    return out
 
 
 def _plan_of(batch, dim: int):
@@ -325,7 +365,8 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
                      consts: PlanConstants, batch: Dict[str, torch.Tensor],
                      dtype=torch.float32, embedding_dtype=torch.float32,
                      fold_params: Optional[Dict[str, torch.Tensor]] = None,
-                     sinks: Optional[Dict[str, torch.Tensor]] = None):
+                     sinks: Optional[Dict[str, torch.Tensor]] = None,
+                     shard=None):
     """Packed batch -> ([B, deep_input_dim] dense input, fold_wide | None).
 
     ``sinks``: when a dict, the rows gathered for the groups it names
@@ -333,7 +374,11 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
     batch) are gathered from the detached table and become leaf tensors
     that require grad, stored under their key; their gradient is the
     compact per-entry gradient the step hands to optim/sparse's
-    apply_fused_update (fused tables) or apply_compact_update."""
+    apply_fused_update (fused tables) or apply_compact_update.
+
+    ``shard``: (mesh, row-sharded param paths) on a mesh of ranks, else
+    None."""
+    mesh, sharded = shard if shard is not None else (None, frozenset())
     parts = []
     B = batch["mask"].shape[0]
     fold_wide = None
@@ -353,7 +398,11 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
 
             table = store.get(("embed", f"d{g.dim}"), (g.rows, FUSED_WIDTH),
                               fused_init)
-            rows = table.detach().index_select(0, ids)[:, :g.dim]
+            if ("dnn", "embed", f"d{g.dim}") in sharded:
+                rows = exchange.gather_rows_nograd(
+                    table.detach()[:, :g.dim], ids, mesh)
+            else:
+                rows = table.detach().index_select(0, ids)[:, :g.dim]
             gathered = rows.to(embedding_dtype)
         else:
             def emb_init(gen, shape, device):
@@ -363,21 +412,32 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
             table = store.get(("embed", f"d{g.dim}"), (g.rows, g.dim),
                               emb_init)
             scat = _plan_of(batch, g.dim)
-            if sinks is not None and f"d{g.dim}" in sinks:
+            wide_rows = None
+            if ("dnn", "embed", f"d{g.dim}") in sharded:
+                gathered, wide_rows = _sharded_gather(
+                    mesh, table, ids, shard_plan_of(batch, g.dim),
+                    fold_params[f"d{g.dim}"]
+                    if fold_params is not None and g.folded else None,
+                    detach=sinks is not None and f"d{g.dim}" in sinks)
+            elif sinks is not None and f"d{g.dim}" in sinks:
                 gathered = table.detach().index_select(0, ids)
             elif fold_params is not None and g.folded:
                 fcol = fold_params[f"d{g.dim}"]
-                gathered, wide_rows = FusedGatherSplit.apply(table, fcol,
-                                                             ids, scat)
+                gathered, wide_rows = FusedGatherSplit.apply(
+                    table, fcol, ids, scat, mesh is not None and scat is None)
+            elif scat is not None:
+                gathered = GatherWithPlan.apply(table, ids, scat)
+            elif mesh is not None:
+                from wide_deep_tpu_torch.models.linear import GatherRows
+                gathered = GatherRows.apply(table, ids)
+            else:
+                gathered = table.index_select(0, ids)
+            if wide_rows is not None:
                 presence = (wts > 0).float()
                 fw = torch.einsum("bpn,bp->bn",
                                   wide_rows.float().reshape(B, P, -1),
                                   presence)
                 fold_wide = fw if fold_wide is None else fold_wide + fw
-            elif scat is not None:
-                gathered = GatherWithPlan.apply(table, ids, scat)
-            else:
-                gathered = table.index_select(0, ids)
         if sinks is not None and f"d{g.dim}" in sinks:
             gathered = gathered.detach().requires_grad_(True)
             sinks[f"d{g.dim}"] = gathered
@@ -395,6 +455,24 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
     return torch.cat(parts, dim=-1), fold_wide
 
 
+def _sharded_gather(mesh, table, ids, plan, fcol, detach: bool):
+    """A row-sharded group's rows through the exchange -> (embedding rows
+    [N, D], fold rows [N, n] in fcol's dtype, or None).  The fold columns
+    ride the same exchange (the table and its fold shard concatenated
+    column-wise, as the JAX package's explicit path concatenates them);
+    ``detach``: the gradient goes to the step's sink instead."""
+    if detach:
+        return exchange.gather_rows_nograd(table.detach(), ids, mesh), None
+    tables = [table] if fcol is None else [table, fcol]
+    full = exchange.planned_sharded_gather(tables, ids, plan, mesh) \
+        if plan is not None else exchange.explicit_sharded_gather(
+            tables, ids, mesh)
+    d = table.shape[1]
+    if fcol is None:
+        return full, None
+    return full[:, :d], full[:, d:].to(fcol.dtype)
+
+
 # ------------------------------------------------------------------- towers
 def _dense(store: ParamStore, path, x, units, dtype):
     kernel = store.get(tuple(path) + ("kernel",), (x.shape[-1], units),
@@ -408,9 +486,12 @@ def _dense(store: ParamStore, path, x, units, dtype):
 
 def _batch_norm(store: ParamStore, state: Optional[Dict], new_state: Dict,
                 tower_idx: int, layer_idx: int, x, training: bool,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, mesh=None):
     """Train-mode BN with masked moments (padding rows excluded), moving
-    stats new = 0.99 * old + 0.01 * batch (biased variance), eps 1e-3."""
+    stats new = 0.99 * old + 0.01 * batch (biased variance), eps 1e-3.
+    On a mesh the moments are the global batch's: the masked sums and
+    counts are summed over 'data' (``AllReduceSum``, whose backward sums
+    the cotangents back)."""
     scale = store.get(("towers", tower_idx, "bn", layer_idx, "scale"),
                       (x.shape[-1],), ones_init)
     bias = store.get(("towers", tower_idx, "bn", layer_idx, "bias"),
@@ -418,7 +499,17 @@ def _batch_norm(store: ParamStore, state: Optional[Dict], new_state: Dict,
     skey = f"t{tower_idx}_l{layer_idx}_bn"
     xf = x.float()
     if training or state is None or skey not in state:
-        if mask is not None:
+        if mesh is not None:
+            m = (mask.float() if mask is not None
+                 else torch.ones(xf.shape[0], device=xf.device))[:, None]
+            s1 = exchange.AllReduceSum.apply(mesh.data_group, "bn", torch.cat(
+                [torch.sum(xf * m, dim=0), torch.sum(m).reshape(1)]))
+            denom = torch.clamp(s1[-1], min=1.0)
+            mean = s1[:-1] / denom
+            var = exchange.AllReduceSum.apply(
+                mesh.data_group, "bn",
+                torch.sum(m * (xf - mean) ** 2, dim=0)) / denom
+        elif mask is not None:
             m = mask.float()[:, None]
             denom = torch.clamp(torch.sum(m), min=1.0)
             mean = torch.sum(xf * m, dim=0) / denom
@@ -449,7 +540,8 @@ def tower_forward(store: ParamStore, spec: DeepSpec, tower_idx: int,
                   x: torch.Tensor, n_logits: int, training: bool,
                   rng: Optional[torch.Generator],
                   bn_state: Optional[Dict], new_bn_state: Dict,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """One tower: DAG-connected hidden stack -> logits [B, n_logits]."""
     tower = spec.towers[tower_idx]
     act = activation_fn(spec.activation)
@@ -469,7 +561,7 @@ def tower_forward(store: ParamStore, spec: DeepSpec, tower_idx: int,
             h = torch.where(drop, h / keep, torch.zeros_like(h))
         if spec.batch_norm:
             h = _batch_norm(store, bn_state, new_bn_state, tower_idx,
-                            layer_id, h, training, mask)
+                            layer_id, h, training, mask, mesh)
         if isinstance(mode, str):
             if mode == "simple":
                 net = h
@@ -508,18 +600,21 @@ def deep_logits(store: ParamStore, plan: FeaturePlan, consts: PlanConstants,
                 n_logits: int, training: bool,
                 rng: Optional[torch.Generator], bn_state: Optional[Dict],
                 fold_params: Optional[Dict[str, torch.Tensor]] = None,
-                sinks: Optional[Dict[str, torch.Tensor]] = None
+                sinks: Optional[Dict[str, torch.Tensor]] = None,
+                shard=None
                 ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
     """Input layer + summed tower logits -> (logits, new BN state,
-    fold_wide | None)."""
+    fold_wide | None); ``shard`` as deep_input_layer takes it."""
     x, fold_wide = deep_input_layer(store, plan, consts, batch, spec.dtype,
-                                    spec.embedding_dtype, fold_params, sinks)
+                                    spec.embedding_dtype, fold_params, sinks,
+                                    shard)
+    mesh = shard[0] if shard is not None else None
     new_bn_state: Dict = {}
     logits = None
     mask = batch.get("mask")
     for t in range(len(spec.towers)):
         lt = tower_forward(store, spec, t, x, n_logits, training, rng,
-                           bn_state, new_bn_state, mask)
+                           bn_state, new_bn_state, mask, mesh)
         logits = lt if logits is None else logits + lt
     return logits, new_bn_state, fold_wide
 

@@ -8,7 +8,7 @@ weights combining the pos/neg sample weights with the batch padding mask.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,9 +21,11 @@ def n_logits_for(n_classes: int) -> int:
 
 
 def head_loss(logits: torch.Tensor, labels: torch.Tensor,
-              weights: torch.Tensor, n_classes: int
+              weights: torch.Tensor, n_classes: int,
+              total_w: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weighted mean loss, per-example loss)."""
+    """(weighted mean loss, per-example loss); ``total_w``: the weight sum
+    to divide by (a rank's share of a global mean), default these rows'."""
     if n_classes == 2:
         z = logits[:, 0]
         y = labels.float()
@@ -34,7 +36,8 @@ def head_loss(logits: torch.Tensor, labels: torch.Tensor,
         logp = F.log_softmax(logits, dim=-1)
         per_ex = -torch.gather(logp, 1, y[:, None])[:, 0]
     w = weights.float()
-    total_w = torch.clamp(torch.sum(w), min=1e-12)
+    total_w = torch.clamp(torch.sum(w) if total_w is None else total_w,
+                          min=1e-12)
     return torch.sum(per_ex * w) / total_w, per_ex
 
 

@@ -50,6 +50,10 @@ class WideDeep:
     n_classes: int = 2
     cnn_spec: Optional[CnnSpec] = None
     fm_factors: int = 0             # >0 adds the FM pairwise term (wide arm)
+    # a mesh of ranks (parallel/exchange.enable_explicit_lookup): the
+    # rank's mesh and the paths of the row-sharded params
+    mesh: Any = None
+    sharded_paths: frozenset = frozenset()
 
     def __post_init__(self):
         if self.model_type not in MODEL_TYPES:
@@ -137,6 +141,8 @@ class WideDeep:
         """Forward pass -> (logits [B, n_logits], new_state)."""
         logits = None
         new_state: Dict[str, Any] = {}
+        shard = ((self.mesh, self.sharded_paths) if self.mesh is not None
+                 else None)
 
         def add(x):
             nonlocal logits
@@ -152,13 +158,13 @@ class WideDeep:
             dl, new_bn, fold_wide = deep_logits(
                 ParamStore(params["dnn"]), self.plan, self.consts,
                 self.deep_spec, batch, self.n_logits, training, rng,
-                state.get("bn"), fold_params, sinks)
+                state.get("bn"), fold_params, sinks, shard)
             new_state["bn"] = new_bn
             add(dl)
             if fold_wide is not None:
                 add(fold_wide)
         if self.has_wide:
-            add(linear_logits(params["linear"], batch, self.consts))
+            add(linear_logits(params["linear"], batch, self.consts, shard))
         if self.has_cnn:
             cl, new_state["cnn_bn"] = cnn_logits(
                 params["cnn"], self.cnn_spec, batch["image"], self.n_logits,
@@ -179,9 +185,19 @@ class WideDeep:
             logits, new_state = self.apply(params, state, batch, training,
                                            rng, sinks)
         weights = batch["weight"] * batch["mask"]
+        total_w = None
+        if self.mesh is not None and training:
+            # this rank's share of the global batch's weighted mean: its
+            # rows' weighted sum over the global weight sum (summed over
+            # 'data'); the penalty joins once, on data rank 0
+            from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+            total_w = mesh_lib.all_reduce(
+                torch.sum(weights.float()).reshape(1).detach(),
+                self.mesh.data_group, "loss")[0]
         loss, per_ex = heads.head_loss(logits, batch["label"], weights,
-                                       self.n_classes)
-        if self.has_deep and (self.deep_spec.l1 or self.deep_spec.l2):
+                                       self.n_classes, total_w)
+        if self.has_deep and (self.deep_spec.l1 or self.deep_spec.l2) and (
+                self.mesh is None or self.mesh.data_idx == 0):
             loss = loss + l2_l1_penalty(params["dnn"], self.deep_spec)
         preds = heads.head_predictions(logits, self.n_classes)
         if collect_summaries:

@@ -13,6 +13,11 @@ Optional FM second-order term (``linear_fm_factors: k``): a [wide_dim, k]
 factor table ``v`` and 0.5 * sum_d((sum_i x_i v_id)^2 - sum_i x_i^2 v_id^2)
 over the active wide features (Rendle 2010), trained by the linear arm's
 optimizer.  Its pooled gather goes through ``GatherRows`` as ``w``'s does.
+
+On a mesh of ranks a row-sharded ``w`` is read through the exchange
+(parallel/exchange.py): the pooled ids by ``explicit_sharded_gather``, the
+indicator rows by ``StaticRowsGather``; where the JAX package leaves these
+gathers to GSPMD.
 """
 
 from __future__ import annotations
@@ -107,12 +112,30 @@ def _fm_term(v: torch.Tensor, batch: Dict[str, torch.Tensor],
 
 
 def linear_logits(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                  consts=None) -> torch.Tensor:
+                  consts=None, shard=None) -> torch.Tensor:
     """[B, n_logits] wide logits: the pooled gather (hash/cross/bucketized
-    slots) plus the indicator block against its static wide rows."""
+    slots) plus the indicator block against its static wide rows.
+    ``shard``: (mesh, row-sharded param paths) on a mesh of ranks."""
     w = params["w"]
     ids = batch["wide_ids"]
     B, L = ids.shape
+    if shard is not None and ("linear", "w") in shard[1]:
+        from wide_deep_tpu_torch.parallel import exchange
+        mesh = shard[0]
+        gathered = exchange.explicit_sharded_gather(
+            [w], ids.reshape(-1), mesh).reshape(B, L, -1)
+        out = torch.einsum("bln,bl->bn", gathered, batch["wide_wts"])
+        if consts is not None and consts.indicator_dim:
+            from wide_deep_tpu_torch.models.deep import indicator_block
+            ind = batch.get("_ind_block")
+            if ind is None:
+                ind = indicator_block(batch, consts.indicator_dim)
+            out = out + torch.matmul(ind.float(), exchange.StaticRowsGather
+                                     .apply(mesh, consts.wide_rows_on(
+                                         w.device), w))
+        if "v" in params:
+            out = out + _fm_term(params["v"], batch, consts)[:, None]
+        return out + params["b"]
     gathered = GatherRows.apply(w, ids.reshape(-1)).reshape(B, L, -1)
     out = torch.einsum("bln,bl->bn", gathered, batch["wide_wts"])
     if consts is not None and consts.indicator_dim:

@@ -242,6 +242,246 @@ def make_compact_plan(ids_flat: np.ndarray, rows: int):
     return {"uids": uids, "ids": compact, "perm": order, "tiles": tiles}
 
 
+# ------------------------------------------------- per-table-shard plans
+# The port's copies of wide_deep_tpu/ops/scatter.py:617-688 (compact) and
+# :783-951 (range, window), bit-identical to them (tests/
+# test_torch_exchange.py) and to what cpp/fastdata.cc emits for a plan with
+# scatter_shards > 1 (tests/test_torch_parallel.py).
+# Each rank of a sharded run takes the row of its own table shard
+# (parallel/exchange.py, optim/sparse.apply_fused_sharded_update).
+SHARD_SLACK = 2  # integer so the C++ emitter computes the identical cap
+SHARD_LIVE_NUM = 5
+SHARD_LIVE_DEN = 4
+
+
+def shard_cap(n_ids: int, n_shards: int) -> int:
+    """Static per-shard stream length: SHARD_SLACK x the even split,
+    ALIGN_IDS-aligned, never above n_ids.  MUST match cpp/fastdata.cc
+    shard_cap (parity test enforces)."""
+    cap = (n_ids * SHARD_SLACK + n_shards - 1) // n_shards
+    cap = ((cap + ALIGN_IDS - 1) // ALIGN_IDS) * ALIGN_IDS
+    return min(cap, n_ids)
+
+
+def shard_live_cap(n_ids: int, n_shards: int) -> int:
+    """Static compacted per-shard stream length: 1.25x the even split,
+    ALIGN_IDS-aligned, never above shard_cap."""
+    cap = ((n_ids * SHARD_LIVE_NUM + n_shards * SHARD_LIVE_DEN - 1)
+           // (n_shards * SHARD_LIVE_DEN))
+    cap = ((cap + ALIGN_IDS - 1) // ALIGN_IDS) * ALIGN_IDS
+    return min(cap, shard_cap(n_ids, n_shards))
+
+
+def sharded_scatter_batch_spec(n_ids: int, rows: int, n_shards: int):
+    """Shapes/dtypes of the per-batch sharded scatter-plan arrays."""
+    cap = shard_cap(n_ids, n_shards)
+    nt = n_tiles_for(cap, rows // n_shards)
+    return {"ids": ((n_shards, cap), np.int32),
+            "perm": ((n_shards, cap), np.int32),
+            "tiles": ((n_shards, 4, nt), np.int32),
+            "ok": ((n_shards,), np.int32),
+            "live": ((n_shards,), np.int32)}
+
+
+def make_sharded_scatter_plan(ids_flat: np.ndarray, rows: int,
+                              n_shards: int,
+                              weights_flat: Optional[np.ndarray] = None):
+    """Host: flat id vector -> per-shard {ids, perm, tiles, ok} np arrays.
+
+    ``ids[s]`` holds shard s's ids LOCALIZED to its row range (id -
+    s*shard_rows), sorted ascending, zero-padded past its live count;
+    ``perm[s]`` maps sorted position -> position in the GLOBAL flat stream
+    (so each device gathers its grad rows from the all-gathered cotangent);
+    ``tiles[s]`` is the build_scatter_tiles output padded with empty tiles;
+    ``ok[s]`` is 0 when the shard's id count overflowed the static cap
+    (the consumer then sums that shard exactly without the plan).
+
+    ``weights_flat``: entries with weight 0 are packed-pool PADDING whose
+    gradients are exactly zero — remapped to an out-of-range sentinel so
+    they land in NO shard.  Without the remap every padding entry (id 0)
+    counts against SHARD 0's cap: at production padding occupancies
+    (~15-22%) and 8 shards, shard 0's count (~n*(1/8 + padding)) exceeds
+    the 2x-even-split cap every batch, permanently demoting the row-shard
+    that holds the hottest rows to the XLA fallback.
+
+    ``live[s]`` is shard s's id count — the consumer's per-shard live-cap
+    compaction conds on it (shard_live_cap above)."""
+    n = int(ids_flat.shape[0])
+    if rows % n_shards:
+        raise ValueError(f"rows {rows} % n_shards {n_shards} != 0")
+    shard_rows = rows // n_shards
+    spec = sharded_scatter_batch_spec(n, rows, n_shards)
+    cap = spec["ids"][0][1]
+    nt = spec["tiles"][0][2]
+    out = {k: np.zeros(shape, dt) for k, (shape, dt) in spec.items()}
+    if weights_flat is not None:
+        ids_flat = np.where(weights_flat != 0, ids_flat,
+                            rows).astype(np.int32)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    bounds = np.searchsorted(
+        ids_sorted, np.arange(n_shards + 1, dtype=np.int64) * shard_rows,
+        side="left")
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        cnt = hi - lo
+        out["live"][s] = cnt
+        if cnt > cap:
+            continue  # ok stays 0: the consumer sums shard s without the plan
+        out["ok"][s] = 1
+        if cnt == 0:
+            continue  # valid empty plan (all tiles empty)
+        local = ids_sorted[lo:hi] - s * shard_rows
+        out["ids"][s, :cnt] = local
+        out["perm"][s, :cnt] = order[lo:hi]
+        starts, offs, counts, row_los = build_scatter_tiles(
+            local, shard_rows)
+        k = starts.shape[0]
+        assert k <= nt, (k, nt)
+        out["tiles"][s, 0, :k] = starts
+        out["tiles"][s, 1, :k] = offs
+        out["tiles"][s, 2, :k] = counts
+        out["tiles"][s, 3, :k] = row_los
+    return out
+
+
+def sharded_window_batch_spec(n_ids: int, rows: int, n_shards: int):
+    """Shapes/dtypes of per-shard WINDOW-mode plan arrays.  Same layout as
+    the sharded range plan but tiles are [3, n_windows] (starts, offs,
+    counts — window t covers the FIXED local rows [t*MAXR, (t+1)*MAXR)),
+    which is how consumers (parallel/exchange.py) tell the modes apart."""
+    cap = shard_cap(n_ids, n_shards)
+    nt = window_rows_pad(rows // n_shards) // MAXR
+    return {"ids": ((n_shards, cap), np.int32),
+            "perm": ((n_shards, cap), np.int32),
+            "tiles": ((n_shards, 3, nt), np.int32),
+            "ok": ((n_shards,), np.int32),
+            "live": ((n_shards,), np.int32)}
+
+
+def make_sharded_window_plan(ids_flat: np.ndarray, rows: int, n_shards: int,
+                             weights_flat: Optional[np.ndarray] = None):
+    """Host: flat id vector -> per-shard window-mode {ids, perm, tiles, ok}.
+
+    The sparse-stream analog of make_sharded_scatter_plan (the d16 case on
+    a mesh: too few ids for range mode, enough to beat the XLA serial
+    scatter with write-only fixed windows).  ``ok[s]`` is 0 when shard s's
+    stream overflowed the cap OR one of its windows overflowed the static
+    window_cap(cap, shard_rows); weight-0 padding is remapped out of every
+    shard (zero gradients, see make_sharded_scatter_plan); ``live[s]`` is
+    shard s's id count (the consumer's live-cap compaction)."""
+    n = int(ids_flat.shape[0])
+    if rows % n_shards:
+        raise ValueError(f"rows {rows} % n_shards {n_shards} != 0")
+    shard_rows = rows // n_shards
+    spec = sharded_window_batch_spec(n, rows, n_shards)
+    cap = spec["ids"][0][1]
+    nt = spec["tiles"][0][2]
+    wcap = window_cap(cap, shard_rows)
+    out = {k: np.zeros(shape, dt) for k, (shape, dt) in spec.items()}
+    if weights_flat is not None:
+        ids_flat = np.where(weights_flat != 0, ids_flat,
+                            rows).astype(np.int32)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    shard_bounds = np.searchsorted(
+        ids_sorted, np.arange(n_shards + 1, dtype=np.int64) * shard_rows,
+        side="left")
+    for s in range(n_shards):
+        lo, hi = int(shard_bounds[s]), int(shard_bounds[s + 1])
+        cnt = hi - lo
+        out["live"][s] = cnt
+        if cnt > cap:
+            continue  # ok stays 0: the consumer sums shard s without the plan
+        local = ids_sorted[lo:hi] - s * shard_rows
+        bounds = np.searchsorted(
+            local, np.arange(nt + 1, dtype=np.int64) * MAXR, side="left")
+        counts = np.diff(bounds)
+        if counts.max(initial=0) > wcap:
+            continue  # hot window: ok stays 0
+        out["ok"][s] = 1
+        if cnt == 0:
+            continue  # valid empty plan (all windows empty)
+        out["ids"][s, :cnt] = local
+        out["perm"][s, :cnt] = order[lo:hi]
+        starts = (bounds[:-1] // ALIGN_IDS) * ALIGN_IDS
+        out["tiles"][s, 0] = starts
+        out["tiles"][s, 1] = bounds[:-1] - starts
+        out["tiles"][s, 2] = counts
+    return out
+
+
+def sharded_compact_plan_spec(n_ids: int, n_shards: int):
+    """Shapes/dtypes of PER-TABLE-SHARD compact plans (the multi-device
+    fused-optimizer path, optim/sparse.apply_fused_sharded_update): same
+    row-shard layout discipline as the sharded scatter plans."""
+    cap = shard_cap(n_ids, n_shards)
+    nt = n_tiles_for(cap, cap)
+    return {"uids": ((n_shards, cap), np.int32),
+            "ids": ((n_shards, cap), np.int32),
+            "perm": ((n_shards, cap), np.int32),
+            "tiles": ((n_shards, 4, nt), np.int32),
+            "ok": ((n_shards,), np.int32),
+            "live": ((n_shards,), np.int32)}
+
+
+def make_sharded_compact_plan(ids_flat: np.ndarray, rows: int,
+                              n_shards: int):
+    """Host: flat id vector -> per-shard compact (dedup) plans.
+
+    Shard s gets make_compact_plan of ITS slice of the globally-sorted
+    stream, with ``uids`` LOCALIZED to the shard's row range and ``perm``
+    mapping into the GLOBAL flat stream (each device gathers its grad rows
+    from the all-gathered cotangent).  ``ok[s]`` is 0 when the shard's
+    stream overflows the static cap (consumer falls back to the serial
+    per-row update for that shard); ``live[s]`` is the shard's entry count
+    (live-cap compaction, shard_live_cap).  Global-batch hosts only
+    (single-process meshes or the input service), like the other sharded
+    plans."""
+    n = int(ids_flat.shape[0])
+    if rows % n_shards:
+        raise ValueError(f"rows {rows} % n_shards {n_shards} != 0")
+    shard_rows = rows // n_shards
+    spec = sharded_compact_plan_spec(n, n_shards)
+    cap = spec["ids"][0][1]
+    nt = spec["tiles"][0][2]
+    out = {k: np.zeros(shape, dt) for k, (shape, dt) in spec.items()}
+    # sentinel-pad every shard's uids with distinct ascending values >=
+    # shard_rows (consumers gather clipped + scatter with drop semantics)
+    out["uids"][:] = (shard_rows
+                      + np.arange(cap, dtype=np.int64)[None, :]).astype(
+                          np.int32)
+    order = np.argsort(ids_flat, kind="stable").astype(np.int32)
+    ids_sorted = ids_flat[order].astype(np.int32)
+    bounds = np.searchsorted(
+        ids_sorted, np.arange(n_shards + 1, dtype=np.int64) * shard_rows,
+        side="left")
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        cnt = hi - lo
+        out["live"][s] = cnt
+        if cnt > cap:
+            continue  # ok stays 0
+        out["ok"][s] = 1
+        if cnt == 0:
+            continue  # valid empty plan
+        local = ids_sorted[lo:hi] - s * shard_rows
+        first = np.empty(cnt, bool)
+        first[0] = True
+        np.not_equal(local[1:], local[:-1], out=first[1:])
+        compact = (np.cumsum(first) - 1).astype(np.int32)
+        u = int(compact[-1]) + 1
+        out["uids"][s, :u] = local[first]
+        out["ids"][s, :cnt] = compact
+        out["perm"][s, :cnt] = order[lo:hi]
+        starts, offs, counts, row_los = build_scatter_tiles(compact, cap)
+        k = starts.shape[0]
+        assert k <= nt, (k, nt)
+        out["tiles"][s, 0, :k], out["tiles"][s, 1, :k] = starts, offs
+        out["tiles"][s, 2, :k], out["tiles"][s, 3, :k] = counts, row_los
+    return out
+
+
 # ---------------------------------------------------------- device wrappers
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -255,9 +495,10 @@ def _check_stream(ids_sorted, perm, g_flat, rows, out_dtype):
             or not g_flat.is_contiguous()):
         raise ValueError("g_flat must be a contiguous [N, D] float32 or "
                          "bfloat16 tensor")
-    n = g_flat.shape[0]
-    if ids_sorted.shape != (n,) or perm.shape != (n,):
-        raise ValueError(f"ids_sorted and perm must be [{n}]")
+    # the stream may be shorter than g: a shard's stream picks its rows of
+    # the all-gathered gradient by perm (parallel/exchange.py)
+    if ids_sorted.dim() != 1 or perm.shape != ids_sorted.shape:
+        raise ValueError("ids_sorted and perm must be one [n] stream")
     if out_dtype not in _FLOATS:
         raise ValueError("out_dtype must be float32 or bfloat16")
     if rows < 0:
@@ -369,7 +610,7 @@ def sorted_stream_sum(ids_sorted: torch.Tensor, perm: torch.Tensor,
                                        out_dtype)
     _require_cuda(g_flat, "range_scatter_add")
     fn = _lib_range()
-    n, d = g_flat.shape
+    n, d = ids_sorted.shape[0], g_flat.shape[1]
     dev = g_flat.device
     out = torch.empty((rows, d), dtype=out_dtype, device=dev)
     scratch = torch.empty(range_scratch_floats(n, d), dtype=torch.float32,

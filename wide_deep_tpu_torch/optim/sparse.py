@@ -262,6 +262,68 @@ def apply_fused_update(table: SparseTable, fused: torch.Tensor,
 
 
 @torch.no_grad()
+def apply_fused_sharded_update(table: SparseTable, fused: torch.Tensor,
+                               row_grads: torch.Tensor, ids: torch.Tensor,
+                               plan: Dict[str, Any], state: Dict[str, Any],
+                               mesh) -> torch.Tensor:
+    """Touched-rows update of this rank's row shard of a fused table, in
+    place (JAX optim/sparse.py:433-552).  ``row_grads`` [N_local, dim] is
+    the rank's compact per-entry gradient, ``ids`` its batch ids, ``plan``
+    its row of the batch's per-shard compact plan {uids, ids, perm, tiles}
+    plus the host ints ``ok`` and ``live``.  The cotangent and the ids are
+    all-gathered over 'data' first, before any branch; then K1 sums the
+    shard's ``live`` entries into the compact space (rows = cap, uids
+    local to the shard), the unique rows are gathered from the shard, the
+    row formula (``_row_update``) runs and K3 writes them back into the
+    shard.  A shard whose stream overflowed the plan's cap (``ok`` 0)
+    takes the exact path: the shard's entries summed per row
+    (parallel/exchange.exact_shard_sum), every touched row updated and
+    written back with ``index_copy_`` (duplicates write the same
+    values)."""
+    from wide_deep_tpu_torch.ops.rowdma import rowdma_scatter_rows
+    from wide_deep_tpu_torch.ops.scatter import range_scatter_add
+    from wide_deep_tpu_torch.parallel import exchange
+    from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+    lr = _lr_at(table.lr, state["count"])
+    d = row_grads.shape[1]
+    shard_rows = fused.shape[0]
+    g_all = mesh_lib.all_gather(row_grads.float().contiguous(),
+                                mesh.data_group, "sparse_update")
+    ids_all = mesh_lib.all_gather(ids.reshape(-1).int().contiguous(),
+                                  mesh.data_group, "sparse_update")
+    layout = fused_layout(table.spec, d)
+    used = (1 + len(layout)) * d
+
+    def formula(full, g):
+        w = full[:, :d]
+        slots = {k: full[:, off:off + d] for k, off in layout.items()}
+        w_new, new_rows = _row_update(table.spec, lr, w, g, slots)
+        return torch.cat(
+            [w_new] + [new_rows[k] for k in _SLOT_KEYS if k in new_rows]
+            + [full[:, used:]], dim=1).contiguous()
+
+    if int(plan["ok"]):
+        cap = plan["ids"].shape[-1]
+        live = int(plan["live"])
+        g_unique = range_scatter_add(plan["ids"][:live], plan["perm"][:live],
+                                     g_all, plan["tiles"], cap,
+                                     torch.float32)
+        uids = plan["uids"]
+        full = fused.index_select(0, torch.clamp(uids, 0, shard_rows - 1))
+        rowdma_scatter_rows(fused, uids, formula(full, g_unique))
+    else:
+        local = ids_all.long() - mesh.shard * shard_rows
+        g_dense = exchange.exact_shard_sum(local, g_all, shard_rows,
+                                           torch.float32)
+        mine = local[(local >= 0) & (local < shard_rows)]
+        full = fused.index_select(0, mine)
+        fused.index_copy_(0, mine, formula(full, g_dense.index_select(
+            0, mine)))
+    state["count"] += 1
+    return fused
+
+
+@torch.no_grad()
 def apply_sparse_update(table: SparseTable, param: torch.Tensor,
                         grad: torch.Tensor, ids: torch.Tensor,
                         state: Dict[str, Any]) -> torch.Tensor:

@@ -96,15 +96,21 @@ def overrides_from(args) -> dict:
         eval_every_n_steps=args.eval_every_n_steps)
 
 
-def maybe_init_distributed(config: Config, force: bool = False) -> dict:
+def maybe_init_distributed(config: Config, force: bool = False,
+                           device=None) -> dict:
     """The distribution settings: train.yaml's, overridden by the launcher's
-    WDT_COORDINATOR / WDT_NUM_PROCESSES / WDT_PROCESS_INDEX.  One process
-    runs as it is; more than one raises, since the port's multi-GPU
-    training is not written yet."""
+    WDT_COORDINATOR / WDT_NUM_PROCESSES / WDT_PROCESS_INDEX (the JAX
+    launcher's variables, scripts/run_distributed.sh).  More than one
+    process: this one joins ``torch.distributed`` as rank
+    ``process_index`` at ``tcp://<coordinator>``, on the card and backend
+    parallel/mesh.placement picks (``device="cpu"``: the host); the
+    Trainer then lays the ranks out as train.yaml's mesh."""
     dist = dict(config.distribution)
     if os.environ.get("WDT_COORDINATOR"):
         dist["is_distribution"] = True
         dist["coordinator"] = os.environ["WDT_COORDINATOR"]
+        # each variable falls back to the YAML value when only some of
+        # them are exported
         dist["num_processes"] = int(
             os.environ.get("WDT_NUM_PROCESSES")
             or dist.get("num_processes") or 1)
@@ -113,10 +119,14 @@ def maybe_init_distributed(config: Config, force: bool = False) -> dict:
             or dist.get("process_index") or 0)
     if force:
         dist["is_distribution"] = True
-    if dist.get("is_distribution") and int(dist.get("num_processes") or 1) > 1:
-        raise NotImplementedError(
-            f"distributed training over {dist['num_processes']} processes "
-            f"is not ported yet (multi-GPU); run one process")
+    n = int(dist.get("num_processes") or 1)
+    if dist.get("is_distribution") and n > 1:
+        from wide_deep_tpu_torch.parallel.mesh import init_distributed
+        coord = str(dist["coordinator"])
+        init_method = coord if "://" in coord else f"tcp://{coord}"
+        dev, backend = init_distributed(int(dist.get("process_index") or 0),
+                                        n, init_method, device)
+        dist["device"], dist["backend"] = str(dev), backend
     return dist
 
 

@@ -32,12 +32,14 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(parser, argv)
     config = setup(args)
     write_pid_file()
-    dist = maybe_init_distributed(config, force=bool(args.distributed))
+    dist = maybe_init_distributed(config, force=bool(args.distributed),
+                                  device=args.device)
 
     from wide_deep_tpu_torch.training.loop import Trainer
     from wide_deep_tpu_torch.utils import profile_trace
     trainer = Trainer(config, model_type=args.model_type,
-                      overrides=overrides_from(args), device=args.device)
+                      overrides=overrides_from(args),
+                      device=dist.get("device", args.device))
     trainer.maybe_wipe_model_dir()
     try:
         with profile_trace(args.profile_dir):

@@ -25,6 +25,12 @@ asynchronous writes: ``save`` returns once its host copy is made, one write
 is in flight at a time, and a forced save, ``wait``, ``latest_step``,
 ``all_steps``, ``restore`` and ``close`` wait for it.  An exception in the
 writer is raised by the next call that waits.
+
+A run on a mesh of ranks writes the files one device writes (the JAX
+package saves global arrays, checkpoint.py:135 there): each row-sharded
+leaf is gathered whole onto rank 0, which alone writes (``gather_sharded``);
+a restore gives each rank its own rows of such a leaf (``restore``'s
+``row_ranges``), so a checkpoint moves between any numbers of ranks.
 """
 
 from __future__ import annotations
@@ -251,19 +257,25 @@ class CheckpointManager:
 
     @torch.no_grad()
     def restore(self, tree: Dict[str, Any],
-                step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+                step: Optional[int] = None,
+                row_ranges: Optional[Dict[str, Tuple[int, int]]] = None
+                ) -> Optional[Dict[str, Any]]:
         """Restore ``step`` (default: the latest) into ``tree`` in place:
         every tensor leaf is ``copy_``-ed from the checkpoint, every int
         leaf replaced in its container; returns ``tree``, or None when
-        there is no checkpoint.  The names, shapes and dtypes must match
-        the checkpoint's, or it raises naming the leaf before writing
-        anything."""
+        there is no checkpoint.  ``row_ranges`` {name: (lo, hi)}: those
+        leaves take rows [lo, hi) of the saved tensor (a rank's shard).
+        The names, shapes and dtypes must match the checkpoint's, or it
+        raises naming the leaf before writing anything."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         self.wait()
         ints = read_index(self.model_dir, step)["ints"]
-        tensors = load_tensors(self.model_dir, step)
+        tensors = dict(load_tensors(self.model_dir, step))
+        for name, (lo, hi) in (row_ranges or {}).items():
+            if name in tensors:
+                tensors[name] = tensors[name][lo:hi]
         leaves = list(_flatten(tree))
         names = {leaf_name(p) for p, _ in leaves}
         extra = sorted((set(tensors) | set(ints)) - names)
@@ -297,6 +309,40 @@ class CheckpointManager:
 
     def close(self):
         self.wait()
+
+
+def sharded_names(tree, sharded_paths) -> Dict[str, Tuple]:
+    """{leaf name: param path} of the leaves of a checkpoint tree that are
+    row shards: the params at ``sharded_paths`` and the optimizer slots
+    keyed by those paths."""
+    out: Dict[str, Tuple] = {}
+    for path, _ in _flatten(tree):
+        for p in sharded_paths:
+            if (path == ("params",) + tuple(p)
+                    or (path[:2] == ("opt_state", "dense")
+                        and path[-1] == tuple(p))):
+                out[leaf_name(path)] = tuple(p)
+    return out
+
+
+def gather_sharded(tree, names) -> Optional[Dict[str, Any]]:
+    """``tree`` with each leaf named in ``names`` gathered whole (every
+    rank's rows in rank order) onto rank 0's host; None on the other ranks.
+    Every rank must call it with the same tree structure."""
+    from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, prefix + (i,)) for i, v in enumerate(node)]
+        if leaf_name(prefix) in names:
+            return mesh_lib.gather_rows(node)
+        return node
+
+    out = walk(tree, ())
+    import torch.distributed as dist
+    return out if dist.get_rank() == 0 else None
 
 
 def inspect_checkpoint(model_dir: str, step: Optional[int] = None,

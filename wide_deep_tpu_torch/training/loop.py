@@ -1,5 +1,5 @@
-"""Trainer: the single-device training loop (the port of
-wide_deep_tpu/training/loop.py without its multi-device path), after the reference's entry-point loops (python/train.py:65-170,
+"""Trainer: the training loop (the port of wide_deep_tpu/training/loop.py),
+after the reference's entry-point loops (python/train.py:65-170,
 eval.py:56-83, pred.py:52-74):
 
 * ``train_and_eval``: per epoch, per train file: train, then evaluate the
@@ -20,6 +20,18 @@ ahead of the step, checkpoints at the runconfig's cadence
 ``log_step_count_steps``.  keep_train=0 wipes the model dir first
 (``maybe_wipe_model_dir``); otherwise a Trainer resumes from the latest
 checkpoint.
+
+On a mesh of ranks (``torch.distributed`` initialized with more than one
+process, parallel/mesh.py; JAX loop.py:164-200) each rank holds its row
+shard of every row-sharded leaf and trains on its rows of the global
+batch: from the input service (``distribution.input_service``: its slice
+of each global batch with its own shard's kernel plans), else from its own
+rows of the files (``num_shards`` / ``shard_index`` over the 'data' axis)
+without kernel plans, as the JAX package does; a mesh whose 'data' axis is
+1 reads the global batch on every rank and keeps the plans.  Batch counts
+are agreed before each batch (``_synced_batches``); checkpoints hold whole
+leaves (rank 0 writes; training/checkpoint.py), so they move between any
+numbers of ranks; ``evaluate`` gives one device's metrics.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wide_deep_tpu_torch import metrics as metrics_lib
 from wide_deep_tpu_torch.config import Config
@@ -47,6 +60,8 @@ from wide_deep_tpu_torch.models.joint import (WideDeep, build_model,
                                               resolve_device)
 from wide_deep_tpu_torch.optim import build_joint_optimizer, tree_items
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
+from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+from wide_deep_tpu_torch.training import checkpoint as ckpt_lib
 from wide_deep_tpu_torch.training.checkpoint import CheckpointManager
 from wide_deep_tpu_torch.training.step import (eval_step, init_opt_state,
                                                predict_step, train_step)
@@ -73,36 +88,56 @@ def resolve_checkpoint(checkpoint_path: str):
 
 
 def build_training_plan(config: Config, train_conf: Dict[str, Any],
-                        model_type: str, n_dev: int = 1) -> FeaturePlan:
-    """The training FeaturePlan on one device: kernel plans for the big
-    groups when ``scatter_mode: pallas`` (the JAX package's name for the
-    kernel backward), the fused sparse optimizer when ``sparse_optimizer``
-    is also on, and ``pack_budget: auto`` resolved from the train data."""
-    if n_dev != 1:
-        raise NotImplementedError("multi-GPU training is not ported yet")
+                        model_type: str, n_dev: int = 1, n_procs: int = 1,
+                        global_batch_input: bool = False) -> FeaturePlan:
+    """The training FeaturePlan for ``n_dev`` table shards fed by
+    ``n_procs`` processes (the JAX package's topology gate, loop.py:61-141
+    there): kernel plans for the big groups when ``scatter_mode: pallas``
+    (the JAX package's name for the kernel backward), per table shard on a
+    mesh, and only where some host sees the global batch's id stream (one
+    process, or ``global_batch_input``: the input service); the fused
+    sparse optimizer where its plans are; ``pack_budget: auto`` resolved
+    from the train data.  ``sharded_lookup: dedup`` is not ported
+    (ROADMAP.md Queue 1)."""
     from wide_deep_tpu_torch.features.analyze import resolve_pack_budget
     budget = train_conf.get("pack_budget")
     if str(budget).lower() == "auto":
         budget = resolve_pack_budget(config, train_conf.get("train_data"),
                                      raw=budget)
+    single_host_input = n_procs == 1 or global_batch_input
+    lookup = config.distribution.get("sharded_lookup") or "auto"
+    if n_dev > 1 and lookup == "dedup":
+        raise NotImplementedError(
+            "sharded_lookup: dedup (the dedup exchange) is not ported yet "
+            "(ROADMAP.md Queue 1); use explicit or auto")
+    explicit_lookup = n_dev > 1 and lookup in ("explicit", "auto")
     kernels = str(train_conf.get("scatter_mode") or "pallas") == "pallas"
+    pallas_scatter = kernels and (
+        n_dev == 1 or (explicit_lookup and single_host_input))
+    scatter_shards = n_dev if n_dev > 1 and pallas_scatter else 1
+    sparse_opt = (bool(train_conf.get("sparse_optimizer")) and kernels
+                  and (n_dev == 1 or (scatter_shards == n_dev
+                                      and single_host_input)))
     return FeaturePlan(
         config, multivalue=train_conf["multivalue"],
         fold=fold_enabled(config, model_type),
         pack_budget=budget if budget not in (None, "") else None,
-        pallas_scatter=kernels,
-        sparse_opt=bool(train_conf.get("sparse_optimizer")) and kernels)
+        pallas_scatter=pallas_scatter, scatter_shards=scatter_shards,
+        shard_threshold=train_conf.get("shard_threshold"),
+        sparse_opt=sparse_opt)
 
 
 def pack_layout(batch: Dict[str, np.ndarray]
                 ) -> Tuple[Dict[str, int], int]:
     """Byte offsets of a batch's keys in one transfer buffer, each
     ``PACK_ALIGN``-aligned, and the buffer's size.  The window plans' ``ok``
-    flags stay out: they stay on the host, where apply_window_plan branches
-    on them without a device sync."""
+    flags stay out, and the per-shard plans' ``live`` counts beside their
+    ``ok`` flags: they stay on the host, where apply_window_plan and the
+    sharded paths branch on them without a device sync."""
     offsets, n = {}, 0
     for k, v in batch.items():
-        if "_ok_" in k:
+        if "_ok_" in k or ("_live_" in k
+                           and k.replace("_live_", "_ok_") in batch):
             continue
         offsets[k] = n
         n += -(-v.nbytes // PACK_ALIGN) * PACK_ALIGN
@@ -120,7 +155,8 @@ def pack_into(staging: np.ndarray, batch: Dict[str, np.ndarray],
 def unpack(buf: torch.Tensor, batch: Dict[str, np.ndarray],
            offsets: Dict[str, int]) -> Dict[str, torch.Tensor]:
     """Per-key views of the uint8 tensor ``buf`` filled by ``pack_into``;
-    keys left out of the layout (the ``ok`` flags) as host tensors."""
+    keys left out of the layout (the ``ok`` and ``live`` flags) as host
+    tensors."""
     out = {}
     for k, v in batch.items():
         if k in offsets:
@@ -178,9 +214,18 @@ class Trainer:
                  n_classes: int = 2,
                  dtype=None,
                  overrides: Optional[Dict[str, Any]] = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
         self.config = config or Config()
+        # a mesh of ranks: the one given, else train.yaml's over the
+        # initialized process group when it has more than one rank
+        if mesh is None and dist.is_initialized() and (
+                dist.get_world_size() > 1):
+            dev, _, _ = mesh_lib.placement(dist.get_rank(),
+                                           dist.get_world_size(), device)
+            mesh = mesh_lib.mesh_from_config(self.config, dev)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.train_conf = dict(self.config.train)
         if overrides:
             self.train_conf.update(
@@ -192,8 +237,20 @@ class Trainer:
         self.batch_size = int(self.train_conf["batch_size"])
         self.n_classes = n_classes
         self.seed = int(self.runconfig["tf_random_seed"])
-        self.plan = build_training_plan(self.config, self.train_conf,
-                                        self.model_type)
+        self.input_service = (
+            self.config.distribution.get("input_service") or None)
+        n_dev = mesh.world if mesh is not None else 1
+        if mesh is not None and self.input_service and mesh.model > 1:
+            raise NotImplementedError(
+                "the input service slices batches over every rank, so it "
+                "takes meshes with model: 1 (ROADMAP.md Queue 1); a mesh "
+                "with data: 1 reads the global batch on every rank")
+        # every rank reads the global batch when the 'data' axis is 1
+        self._global_input = bool(self.input_service) or (
+            mesh is not None and mesh.data == 1)
+        self.plan = build_training_plan(
+            self.config, self.train_conf, self.model_type, n_dev,
+            n_procs=n_dev, global_batch_input=self._global_input)
         self.model: WideDeep = build_model(
             self.config, plan=self.plan, model_type=self.model_type,
             n_classes=n_classes, dtype=dtype)
@@ -232,6 +289,33 @@ class Trainer:
         self._copy_stream: Optional[torch.cuda.Stream] = None
         self._ckpt: Optional[CheckpointManager] = None
         self._summary_writer = None
+        # the paths of the row-sharded leaves, once the params are sharded
+        self.sharded_paths: Optional[frozenset] = None
+
+    @property
+    def is_chief(self) -> bool:
+        """Rank 0 of a mesh, or the one process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def per_rank_batch(self) -> int:
+        """Rows of each rank's part of the global batch."""
+        return self.batch_size // (self.mesh.data if self.mesh else 1)
+
+    def _shard_params(self) -> None:
+        """On a mesh: each row-sharded leaf of the (whole) params replaced
+        by this rank's rows, and the model's gathers from them routed
+        through the exchange (parallel/exchange.enable_explicit_lookup)."""
+        if self.mesh is None or self.sharded_paths is not None:
+            return
+        from wide_deep_tpu_torch.parallel.exchange import (
+            enable_explicit_lookup)
+        paths = mesh_lib.param_shardings(
+            self.params, self.mesh.world,
+            self.train_conf.get("shard_threshold"))
+        mesh_lib.shard_params(self.params, paths, self.mesh)
+        self.sharded_paths = paths
+        enable_explicit_lookup(self.model, self.mesh, paths)
 
     def ensure_initialized(self, restore: bool = True):
         """Once: draw params and BN state from the seed unless they were
@@ -246,6 +330,7 @@ class Trainer:
             self.params, self.mstate = self.model.init(self.seed, sample,
                                                        self.device)
             sparse_lib.init_fused_params(self.params, self.sparse_tables)
+        self._shard_params()
         if self.opt_state is None:
             self.opt_state = init_opt_state(self.tx, self.params,
                                             self.sparse_tables)
@@ -256,8 +341,10 @@ class Trainer:
         # were trained with; a wiped (keep_train=0) dir gets a new record
         from wide_deep_tpu_torch.features.analyze import (load_plan_meta,
                                                           save_plan_meta)
-        if load_plan_meta(self.model_dir) is None:
+        if self.is_chief and load_plan_meta(self.model_dir) is None:
             save_plan_meta(self.model_dir, self.plan)
+        if self.mesh is not None:
+            mesh_lib.host_any(False, self.mesh)   # the record is written
         if restore and fresh:
             restored = self._restore_tree(self._ckpt)
             if restored is not None:
@@ -280,7 +367,16 @@ class Trainer:
         place; the fused tables' padding columns are zeroed
         (optim/sparse.expand_fused_ckpt).  -> the restored tree, or None
         when there is no checkpoint."""
-        restored = mgr.restore(self._ckpt_tree(), step=step)
+        tree = self._ckpt_tree()
+        ranges = None
+        if self.mesh is not None:
+            leaves = dict(ckpt_lib.named_leaves(tree))
+            ranges = {}
+            for name in ckpt_lib.sharded_names(tree, self.sharded_paths):
+                rows = leaves[name].shape[0]
+                ranges[name] = (self.mesh.shard * rows,
+                                (self.mesh.shard + 1) * rows)
+        restored = mgr.restore(tree, step=step, row_ranges=ranges)
         if restored is None:
             return None
         self.params = sparse_lib.expand_fused_ckpt(
@@ -292,8 +388,33 @@ class Trainer:
         return restored
 
     def maybe_wipe_model_dir(self):
-        if not self.train_conf["keep_train"] and os.path.isdir(self.model_dir):
+        if (self.is_chief and not self.train_conf["keep_train"]
+                and os.path.isdir(self.model_dir)):
             shutil.rmtree(self.model_dir)
+        if self.mesh is not None:
+            mesh_lib.host_any(False, self.mesh)   # every rank sees it done
+
+    def _should_save(self) -> bool:
+        """The checkpoint cadence's decision for this step; on a mesh rank
+        0's, so that every rank joins the same saves."""
+        want = self._ckpt.should_save(self.global_step)
+        if self.mesh is not None and not self._ckpt.save_steps:
+            want = mesh_lib.host_broadcast(want, self.mesh)
+        return want
+
+    def _save_step(self, force: bool = False) -> None:
+        """Checkpoint the current step.  On a mesh every rank calls it: the
+        row-sharded leaves are gathered whole onto rank 0, which writes
+        the files one device writes, durable before any rank returns."""
+        tree = self._ckpt_tree()
+        if self.mesh is None:
+            self._ckpt.save(self.global_step, tree, force=force)
+            return
+        names = ckpt_lib.sharded_names(tree, self.sharded_paths)
+        whole = ckpt_lib.gather_sharded(tree, names)
+        if whole is not None:
+            self._ckpt.save(self.global_step, whole, force=True)
+        mesh_lib.host_any(False, self.mesh)   # committed before anyone reads
 
     # ------------------------------------------------------------- transfer
     def _to_device(self, batch: Dict[str, np.ndarray]
@@ -353,21 +474,98 @@ class Trainer:
 
     def _dataset(self, path: str, mode: str, epoch_seed: int = 0):
         """A CsvDataset over ``path``, or with the CNN arm an
-        ImageCsvDataset pairing its rows with ``_image_path``'s images."""
+        ImageCsvDataset pairing its rows with ``_image_path``'s images.  On
+        a mesh: the input service's slices for training when it is set
+        (``_remote_dataset``); else this rank's rows (the 'data' axis's
+        round-robin shard) at the rank's batch size, or with a 'data' axis
+        of 1 the global batch cut to the rank's plan rows."""
+        mesh = self.mesh
+        if mesh is not None and self.input_service and mode == "train":
+            return self._remote_dataset(path, epoch_seed)
+        global_rows = mesh is not None and mesh.data == 1
         kwargs = dict(
             n_classes=self.n_classes, pos_weight=self.pos_weight,
             neg_weight=self.neg_weight,
             shuffle_buffer=int(self.train_conf["num_examples"]),
             seed=self.seed + epoch_seed, transformer=self.transformer)
+        if mesh is not None and not global_rows:
+            kwargs.update(num_shards=mesh.data, shard_index=mesh.data_idx)
+        batch = self.batch_size if global_rows else self.per_rank_batch
         img = self._image_path(mode, path)
         if img:
             from wide_deep_tpu_torch.features.image import ImageCsvDataset
             cnn = self.model.cnn_spec
-            return ImageCsvDataset(
-                self.plan, path, img, mode, self.batch_size,
+            ds = ImageCsvDataset(
+                self.plan, path, img, mode, batch,
                 height=cnn.height, width=cnn.width, channels=cnn.channels,
                 **kwargs)
-        return CsvDataset(self.plan, path, mode, self.batch_size, **kwargs)
+        else:
+            ds = CsvDataset(self.plan, path, mode, batch, **kwargs)
+        if global_rows and self.plan.scatter_shards > 1:
+            return _RankRows(ds, mesh)
+        return ds
+
+    def _remote_dataset(self, path: str, epoch_seed: int):
+        """This rank's slices of the input service's global batches (JAX
+        loop.py:382-436): the loader is checked to serve this run's stream
+        (``stream_fingerprint``), and ``run_token`` (the step, the same on
+        every rank) keys a fresh stream for a resumed run."""
+        from wide_deep_tpu_torch.features.input_service import (
+            RemoteInputDataset, group_range_for_proc, loader_for_proc,
+            stream_fingerprint)
+        mesh = self.mesh
+        addrs = [a.strip() for a in self.input_service.split(",")
+                 if a.strip()]
+        image_shape = (224, 224, 3)
+        if self.model.has_cnn:
+            image_shape = self.model.cnn_spec.image_shape
+        fingerprint = stream_fingerprint(
+            self.seed, self.batch_size, self.n_classes,
+            self.plan.scatter_shards, mesh.world,
+            pos_weight=self.pos_weight, neg_weight=self.neg_weight,
+            model_type=self.model_type,
+            shuffle_buffer=int(self.train_conf["num_examples"]))
+        return RemoteInputDataset(
+            self.plan, loader_for_proc(addrs, mesh.rank, mesh.world), path,
+            "train", global_batch=self.batch_size,
+            group_range=group_range_for_proc(len(addrs), mesh.rank,
+                                             mesh.world),
+            proc=mesh.rank, n_procs=mesh.world, epoch_seed=epoch_seed,
+            n_classes=self.n_classes, with_image=self.model.has_cnn,
+            image_shape=image_shape, fingerprint=fingerprint,
+            run_token=self.global_step)
+
+    def _synced_batches(self, batches, mode: str, spec=None):
+        """The dataset's batches with batch counts agreed over the ranks
+        (JAX loop.py:487-524): every step of a mesh needs every rank, and
+        round-robin row shards can leave one rank a batch more than
+        another.  Before each batch the ranks agree (over the mode's own
+        host group, so this may run in a loader thread beside the step's
+        collectives) whether any still has data; an exhausted rank feeds
+        zero-weight padding batches (of ``spec``, default the plan's at
+        the rank's batch size) until all are done.  One process: the
+        batches as they are."""
+        if self.mesh is None:
+            yield from batches
+            return
+        it = iter(batches)
+        pad = None
+        exhausted = False
+        while True:
+            batch = None if exhausted else next(it, None)
+            exhausted = batch is None
+            if not mesh_lib.host_any(batch is not None, self.mesh,
+                                     self.mesh.loader_groups[mode]):
+                return
+            if batch is None:
+                if pad is None:
+                    spec = spec or self.plan.batch_spec(
+                        self.per_rank_batch, self.n_classes,
+                        with_image=self.model.has_cnn, mode=mode)
+                    pad = {k: np.zeros(shape, dt)
+                           for k, (shape, dt) in spec.items()}
+                batch = pad
+            yield batch
 
     def train_file(self, path: str, epoch_seed: int = 0,
                    max_steps: Optional[int] = None) -> float:
@@ -382,16 +580,18 @@ class Trainer:
         t0 = time.time()
         last_log_step, last_log_time = self.global_step, t0
         loss = None
-        batches = iter(self._dataset(path, "train", epoch_seed))
-        if max_steps is not None:
-            batches = itertools.islice(batches, max_steps)
+        ds = self._dataset(path, "train", epoch_seed)
+        batches = self._synced_batches(
+            itertools.islice(ds, max_steps), "train",
+            getattr(ds, "local_spec", None))
         for batch in DevicePrefetchIterator(PrefetchIterator(batches),
                                             self._to_device):
             summarize = bool(summary_every) and (
                 (self.global_step + 1) % summary_every == 0)
             if summarize:
                 loss = self.train_batch(batch, with_summaries=True)
-                self._write_summaries(float(loss), self.summary_stats)
+                if self.is_chief:
+                    self._write_summaries(float(loss), self.summary_stats)
             else:
                 loss = self.train_batch(batch)
             if self.global_step % log_every == 0:
@@ -402,14 +602,15 @@ class Trainer:
                          self.global_step, float(loss), sps,
                          sps * self.batch_size)
                 last_log_step, last_log_time = self.global_step, now
-            if self._ckpt.should_save(self.global_step):
-                self._ckpt.save(self.global_step, self._ckpt_tree())
+            if self._should_save():
+                self._save_step()
             if (self.eval_every_n_steps
                     and self.global_step % self.eval_every_n_steps == 0):
                 res = self.evaluate(self.train_conf["eval_data"])
                 log.info("step %d cadenced eval: %s", self.global_step,
                          _fmt(res))
-                self._write_eval_summaries(res)
+                if self.is_chief:
+                    self._write_eval_summaries(res)
         log.info("finished %s in %.1f s (step %d)", os.path.basename(path),
                  time.time() - t0, self.global_step)
         return float("nan") if loss is None else float(loss)
@@ -426,6 +627,10 @@ class Trainer:
         stream ending (the producer closed, or with ``reconnect`` every
         retry spent) returns normally."""
         from wide_deep_tpu_torch.features.stream import StreamDataset
+        if self.mesh is not None:
+            raise ValueError("train_stream runs on one process; the ranks "
+                             "of a mesh train from files or the input "
+                             "service")
         self.ensure_initialized()
         ds = StreamDataset(
             self.plan, host, port, mode="train", batch_size=self.batch_size,
@@ -445,7 +650,7 @@ class Trainer:
     def save(self, force: bool = True):
         """Checkpoint the current step; durable on return."""
         self.ensure_initialized()
-        self._ckpt.save(self.global_step, self._ckpt_tree(), force=force)
+        self._save_step(force=force)
         self._ckpt.wait()
 
     def _writer(self):
@@ -509,9 +714,16 @@ class Trainer:
             self._restore_pinned(checkpoint_path)
         data_path = data_path or self.train_conf["test_data"]
         acc = metrics_lib.init_metrics(device=self.device)
-        for batch in PrefetchIterator(self._dataset(data_path, "eval")):
+        for batch in PrefetchIterator(self._synced_batches(
+                self._dataset(data_path, "eval"), "eval")):
             acc = eval_step(self.model, self.params, self.mstate,
                             self._device_batch(batch), acc)
+        if self.mesh is not None:
+            # each data slice's sums, added over 'data' (a model group's
+            # ranks hold the same rows)
+            acc = {k: mesh_lib.all_reduce(v.reshape(-1), self.mesh.data_group,
+                                          "metrics").reshape(v.shape)
+                   for k, v in acc.items()}
         results = metrics_lib.finalize_metrics(acc,
                                                binary=self.n_classes == 2)
         results["global_step"] = self.global_step
@@ -522,7 +734,14 @@ class Trainer:
                 ) -> Iterator[Dict[str, Any]]:
         """Per-example predictions over ``data_path`` (default:
         ``test_data``), streamed: one dict of numpy values per real row;
-        from the checkpoint ``checkpoint_path`` names where one is given."""
+        from the checkpoint ``checkpoint_path`` names where one is given.
+        One process, as the JAX package's predict (loop.py:703-711 there):
+        ranks score through ``evaluate`` or a served bundle."""
+        if self.mesh is not None:
+            raise ValueError(
+                "predict() runs on one process (the reference's pred.py "
+                "likewise); run tools.pred against the checkpoint on one "
+                "card, use evaluate() on the ranks, or serve the export")
         self.ensure_initialized(restore=not checkpoint_path)
         if checkpoint_path:
             self._restore_pinned(checkpoint_path)
@@ -580,6 +799,19 @@ class Trainer:
             for path in list_files(conf["train_data"]):
                 self.train_file(path, epoch_seed=epoch)
             self.save()
+
+
+class _RankRows:
+    """A global-batch dataset cut to one rank's part (parallel/mesh
+    .shard_batch): its batch rows and its row of each per-shard plan."""
+
+    def __init__(self, dataset, mesh):
+        self.dataset, self.mesh = dataset, mesh
+        self.mode = dataset.mode
+
+    def __iter__(self):
+        for batch in self.dataset:
+            yield mesh_lib.shard_batch(batch, self.mesh, self.mesh.world)
 
 
 def _fmt(res: Dict[str, float]) -> str:

@@ -13,6 +13,16 @@ An unfused table without a plan gets its dense gradient, which
 apply_sparse_update reads at the batch's ids.  Params, BN state and
 optimizer state are updated in place.
 
+On a mesh of ranks (``model.mesh``, the sharded branch of JAX
+training/step.py:150-175) the loss is this rank's share of the global
+weighted mean, the replicated leaves' gradients are summed over every rank
+(model ranks after the first add zeros, since their rows repeat the first's)
+in one all-reduce per dtype, so every rank applies the same bits; the
+row-sharded leaves' gradients come from the exchange's backward, already
+the rank's shard's; and a sparse table whose batch carries per-shard
+compact plans (``sopt_ok_*``) takes optim/sparse.apply_fused_sharded_update.
+The loss returned is the global one, the same bits on every rank.
+
 ``defer_sparse`` moves the fused update one step later: a step first
 applies the update the previous step left in ``opt_state
 ["sparse_pending"]`` and leaves its own there.  The forward sees the same
@@ -90,6 +100,10 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         allow_unused=True)
     dense_grads = {p: (g if g is not None else torch.zeros_like(t))
                    for (p, t), g in zip(leaves, grads)}
+    mesh = model.mesh
+    if mesh is not None:
+        _sum_replicated_grads(dense_grads, model.sharded_paths, mesh)
+        loss = _global_loss(loss.detach(), mesh)
     sink_grads = dict(zip((k for k, _ in sink_items), grads[len(leaves):]))
     tx.update_(params, dense_grads, opt_state["dense"])
     if defer_sparse:
@@ -104,7 +118,15 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         key = t.path[-1]
         param = tree_get(params, t.path)
         st = opt_state["sparse"][name]
-        if name in compact:
+        if name in compact and f"sopt_ok_{key}" in batch:
+            from wide_deep_tpu_torch.models.deep import plan_row
+            if not t.fused or mesh is None:
+                raise ValueError(f"{name}: per-shard compact plans need a "
+                                 f"fused table and a model on a mesh")
+            sparse_lib.apply_fused_sharded_update(
+                t, param, sink_grads[key], batch[t.ids_key],
+                plan_row(batch, "sopt", t.dim), st, mesh)
+        elif name in compact:
             plan = {k: batch[f"sopt_{k}_{key}"] for k in PLAN_KEYS}
             apply = (sparse_lib.apply_fused_update if t.fused
                      else sparse_lib.apply_compact_update)
@@ -115,6 +137,38 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
     if with_summaries:
         return new_mstate, loss.detach(), aux[3]
     return new_mstate, loss.detach()
+
+
+def _sum_replicated_grads(grads: Dict[Any, torch.Tensor],
+                          sharded_paths, mesh) -> None:
+    """In place: each replicated leaf's gradient summed over every rank,
+    one all-reduce per dtype over a flat buffer; ranks past the first of
+    their model group add zeros (their rows, and so their gradients,
+    repeat the first's)."""
+    from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p, g in grads.items():
+        if p not in sharded_paths:
+            by_dtype.setdefault(g.dtype, []).append(p)
+    for dtype, paths in by_dtype.items():
+        flat = torch.cat([grads[p].reshape(-1) for p in paths])
+        if mesh.model_idx:
+            flat = torch.zeros_like(flat)
+        flat = mesh_lib.all_reduce(flat, None, "grads")
+        at = 0
+        for p in paths:
+            n = grads[p].numel()
+            grads[p] = flat[at:at + n].view(grads[p].shape)
+            at += n
+
+
+def _global_loss(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's loss from each rank's share, the same bits on
+    every rank."""
+    from wide_deep_tpu_torch.parallel import mesh as mesh_lib
+    share = loss.reshape(1) if mesh.model_idx == 0 else torch.zeros(
+        1, dtype=loss.dtype, device=loss.device)
+    return mesh_lib.all_reduce(share, None, "loss")[0]
 
 
 def seed_pending(sparse_tables: Dict[str, Any], opt_state,
