@@ -55,9 +55,10 @@ each on stdout:
    phase 2's Trainer: finite metrics, an AUC in [0, 1], one prediction a
    line, and no kernel launch;
 5. the bench tool's ``main`` (``wide_deep_tpu_torch.tools.bench``) in-process
-   at batch 25600 with 6 end-to-end batches, once phase 2's Trainer is
-   freed: its JSON line must hold every key, and each of its train steps
-   must launch the kernels as phase 2's do;
+   at batch 25600 with 6 end-to-end batches and its device stage's 3-step
+   profile (``BENCH_PROFILE``, read by phase 12), once phase 2's Trainer
+   is freed: its JSON line must hold every key, and each of its train
+   steps must launch the kernels as phase 2's do;
 6. the CLIs with checkpoints, once phase 5's objects are freed, on conf/
    copied to a temporary dir (pack_budget 3; runconfig: a checkpoint and a
    summary every 2 steps, 2 checkpoints kept, a step log every step) over
@@ -192,10 +193,27 @@ each on stdout:
     leaves) into one device bit for bit; then the mesh ``{data: 1,
     model: 2}`` without the input service (each rank reads the global
     batch), its losses against one device's; the NCCL ranks on separate
-    cards only with two cards, else a line says they did not run;
+    cards only with two cards, else a line says they did not run; then
+    ``sharded_lookup: dedup`` (PR 14) on ``{data: 1, model: 2}`` and on
+    ``{data: 2, model: 1}`` behind an input service of its own: every
+    step's launches read against ``SITES_DEDUP`` (K1 at the d8 and d16
+    groups' slot sums, never K2), step 0's launches held against their
+    plain versions, the slot sums also timed without the routing of
+    weight-0 entries (the carry pass apart), losses against one device's;
+    in every run of the phase each step's exchange bytes a rank, by tag,
+    must equal ``parallel.collective_stats``' prediction from shapes
+    alone; every held launch is timed beside its plain version and its
+    library call (``index_add_``, ``index_copy_``);
+12. the perf gate (PR 14) on phase 5's trace of the bench tool's device
+    stage (3 steps, ``BENCH_PROFILE``): ``tools.parse_trace``,
+    ``tools.perf_regression capture`` (build/perf_budget_capture.json)
+    and ``check`` against that capture; the ms a step by bucket and the
+    port's kernels printed; fails on an empty trace or a kernel the step
+    launched missing from the ``kernel`` bucket; the committed
+    perf_budget_torch.json compared, not gated;
 then one JSON line describing the kernels (with each row's launches on the
-CLI path, on the CNN path and, by rank, on the sharded path), and the
-device line.
+CLI path, on the CNN path and, by rank, on the sharded path and the dedup
+path; the dedup slot sums have rows of their own), and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -897,13 +915,14 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms",
               "end_to_end_examples_per_sec", "end_to_end_step_ms")
 
 
-def phase_bench(card):
+def phase_bench(card, profile_dir):
     """Phase 5: the bench tool's ``main`` as a user runs it (batch 25600,
-    6 end-to-end batches); its JSON line must hold every key, and each of
-    its train steps must launch K1 at its four sites, K3, and K2 or (d16
-    ok=0) K1 once more, as phase 2's steps do."""
+    6 end-to-end batches, its device stage's 3-step profile written to
+    ``profile_dir`` for phase 12); its JSON line must hold every key, and
+    each of its train steps must launch K1 at its four sites, K3, and K2
+    or (d16 ok=0) K1 once more, as phase 2's steps do."""
     from wide_deep_tpu_torch.tools import bench
-    env = {"BENCH_E2E_BATCHES": "6"}
+    env = {"BENCH_E2E_BATCHES": "6", "BENCH_PROFILE": profile_dir}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     c0 = counts()
@@ -2871,12 +2890,18 @@ SHARDED_EVAL_TOL = 5e-4        # AUC and logloss, absolute
 # plan row runs K2, or K1 when its flag says ok=0
 SITES_SHARDED = {"K1 d8": 1, "K1 d4": 2, "K1 d32 compact": 1, "K1 wide": 2,
                  "K3": 1}
+# ... and under sharded_lookup: dedup: no kernel plan rows; the d8 and d16
+# groups' dedup exchange sums its cotangent by slot with K1 (the slot
+# sums), never K2
+SITES_DEDUP = {"K1 d8 dedup": 1, "K1 d16 dedup": 1, "K1 d4": 2,
+               "K1 d32 compact": 1, "K1 wide": 2, "K3": 1}
 
 
 def sharded_site_names(trainer, batch):
     """{(rows, D): site} of K1's call sites on a rank's step: the shapes
-    of its shard's sums (``SITES_SHARDED``)."""
-    from wide_deep_tpu_torch.ops.scatter import shard_cap
+    of its shard's sums (``SITES_SHARDED``), and the dedup exchange's slot
+    sums into [S * cap, D] (``SITES_DEDUP``)."""
+    from wide_deep_tpu_torch.ops.scatter import dedup_cap, shard_cap
     plan, mesh = trainer.plan, trainer.mesh
     paths = trainer.sharded_paths
     s = mesh.world
@@ -2887,6 +2912,8 @@ def sharded_site_names(trainer, batch):
         n = batch * plan.group_packed_len[g.dim]
         if plan.sparse_opt_group(g, batch):
             out[shard_cap(n, s), g.dim] = f"K1 d{g.dim} compact"
+        elif plan.dedup_group(g, batch):
+            out[s * dedup_cap(n, g.rows, s), width] = f"K1 d{g.dim} dedup"
         elif plan.scatter_group(g, batch):
             out[g.rows // s, width] = f"K1 d{g.dim}"
         elif plan.window_group(g, batch):
@@ -2917,27 +2944,38 @@ def held_to_plain_sharded(trainer, batch, seen):
     each launch against its plain version on the same per-shard inputs
     (K1 and K2 within 1e-6 of each row's sum of |g| + 1e-6, one bfloat16
     ulp more for a bfloat16 output; K3 exact on a copy of the shard), and
-    timed again on them (median of 5 calls by CUDA events, beside its
-    bound: ids, perm and the rows read once, the output written once),
-    appended to ``seen``.  -> a function restoring the wrappers."""
+    timed again on them, with the plain version and the library call
+    (``index_add_`` of the live rows into zeros; ``index_copy_`` for K3):
+    medians of 5 calls by CUDA events, beside the bound (ids and perm read
+    once, the live entries' rows read once, the output written once);
+    appended to ``seen`` as dicts.  The dedup exchange's slot sums
+    (``exchange.slot_sum``) are also timed without the routing of
+    weight-0 entries, K1's carry pass apart (device ms of a profiler
+    window).  -> a function restoring the wrappers."""
     import torch
 
     from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.parallel import exchange
     k1, k2 = scatter.sorted_stream_sum, scatter.window_scatter_add
     k3 = rowdma.rowdma_scatter_rows
+    slot_sum = exchange.slot_sum
     names = sharded_site_names(trainer, batch)
 
-    def timed(call):
-        """event_ms of a kernel call, its launches kept off the counts."""
+    def counted_off(fn):
+        """``fn()``, its kernels' launches kept off the counts."""
         saved = (scatter.range_launches, scatter.window_launches,
                  rowdma.rowdma_launches,
                  dict(scatter.range_launches_by_shape))
-        ms = event_ms(call)
+        out = fn()
         (scatter.range_launches, scatter.window_launches,
          rowdma.rowdma_launches, by_shape) = saved
         scatter.range_launches_by_shape.clear()
         scatter.range_launches_by_shape.update(by_shape)
-        return ms
+        return out
+
+    def timed(call):
+        """event_ms of a kernel call, its launches kept off the counts."""
+        return counted_off(lambda: event_ms(call))
 
     def against(name, shape, got, ids, perm, g, rows, out_dtype, call):
         want = scatter.range_scatter_add_plain(ids, perm, g, rows,
@@ -2948,12 +2986,22 @@ def held_to_plain_sharded(trainer, batch, seen):
         tol = 1e-6 * mag + 1e-6
         if out_dtype == torch.bfloat16:
             tol += BF16_TOL * want.abs()
-        n, d = ids.numel(), g.shape[1]
+        live = (ids >= 0) & (ids < rows)
+        lib_ids, lib_g = ids[live].long(), g[perm[live].long()].to(out_dtype)
+        n, n_live, d = ids.numel(), lib_ids.numel(), g.shape[1]
         out_b = torch.finfo(out_dtype).bits // 8
-        bound = bound_ms(n * (8 + d * g.element_size()) + rows * d * out_b,
-                         n * d)[0]
-        seen.append((name, shape, float(err.max()) if err.numel() else 0.0,
-                     bool((err <= tol).all()), timed(call), bound))
+        b_ms, b_by = bound_ms(n * 8 + n_live * d * g.element_size()
+                              + rows * d * out_b, n_live * d)
+        seen.append({
+            "site": name, "shape": shape,
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "ok": bool((err <= tol).all()), "ms": timed(call),
+            "plain_ms": event_ms(lambda: scatter.range_scatter_add_plain(
+                ids, perm, g, rows, out_dtype)),
+            "library_ms": event_ms(lambda: torch.zeros(
+                (rows, d), dtype=out_dtype, device=g.device).index_add_(
+                    0, lib_ids, lib_g)),
+            "bound_ms": b_ms, "bound_by": b_by})
 
     def k1_held(ids, perm, g, rows, out_dtype):
         got = k1(ids, perm, g, rows, out_dtype)
@@ -2981,20 +3029,52 @@ def held_to_plain_sharded(trainer, batch, seen):
         del want
         # writing the same rows again leaves the shard as it is
         ms = timed(lambda: k3(table, uids, new_rows))
-        live = int(((uids >= 0) & (uids < table.shape[0])).sum())
-        seen.append(("K3", f"{uids.numel()} uids into {list(table.shape)}",
-                     err, exact, ms,
-                     bound_ms(uids.numel() * 4 + 2 * live * new_rows.shape[1]
-                              * new_rows.element_size(), 0)[0]))
+        valid = (uids >= 0) & (uids < table.shape[0])
+        live = int(valid.sum())
+        lib_uids, lib_rows = uids[valid].long(), new_rows[valid]
+        b_ms, b_by = bound_ms(uids.numel() * 4 + 2 * live * new_rows.shape[1]
+                              * new_rows.element_size(), 0)
+        seen.append({
+            "site": "K3", "shape": f"{uids.numel()} uids into "
+                                   f"{list(table.shape)}",
+            "max_abs_err": err, "ok": exact, "ms": ms,
+            "plain_ms": event_ms(lambda: rowdma.rowdma_scatter_rows_plain(
+                table, uids, new_rows)),
+            "library_ms": event_ms(lambda: table.index_copy_(0, lib_uids,
+                                                             lib_rows)),
+            "bound_ms": b_ms, "bound_by": b_by})
         return table
+
+    def slot_sum_held(slots, g, n_slots, live=None):
+        out = slot_sum(slots, g, n_slots, live)
+        if live is not None:
+            # K1 over the slot stream with and without the weight-0
+            # entries routed out: event ms, and the carry pass's device ms
+            site = names.get((n_slots, g.shape[1]), f"rows={n_slots}")
+            gf = g.float().contiguous()
+            for routed in (True, False):
+                ids, perm = exchange.slot_stream(slots, n_slots,
+                                                 live if routed else None)
+                call = lambda: k1(ids, perm, gf, n_slots, torch.float32)
+                parts, _ = counted_off(lambda: device_ms(call, calls=5))
+                seen.append({
+                    "site": f"{site} carry", "routed": routed,
+                    "entries": int(slots.numel()),
+                    "live": int((ids < n_slots).sum()),
+                    "ms": timed(call),
+                    "carry_ms": parts.get("range_carry_kernel", 0.0),
+                    "chunk_ms": parts.get("range_chunk_kernel", 0.0)})
+        return out
 
     scatter.sorted_stream_sum = k1_held
     scatter.window_scatter_add = k2_held
     rowdma.rowdma_scatter_rows = k3_held
+    exchange.slot_sum = slot_sum_held
 
     def restore():
         scatter.sorted_stream_sum, scatter.window_scatter_add = k1, k2
         rowdma.rowdma_scatter_rows = k3
+        exchange.slot_sum = slot_sum
     return restore
 
 
@@ -3113,9 +3193,10 @@ def sharded_rank(spec):
         json.dump(out, f)
 
 
-def sharded_conf(tmp, name, mesh, service=""):
+def sharded_conf(tmp, name, mesh, service="", lookup="auto"):
     """conf/ copied to ``tmp/<name>`` for the ranks: pack_budget 3, the
-    mesh ``{data, model}``, the input service's address (or none)."""
+    mesh ``{data, model}``, the input service's address (or none), the
+    ``sharded_lookup``."""
     import re
     dst = os.path.join(tmp, name)
     if not os.path.isdir(dst):
@@ -3127,13 +3208,57 @@ def sharded_conf(tmp, name, mesh, service=""):
                      (r"(?m)^    data: .*$", f"    data: {mesh[0]}"),
                      (r"(?m)^    model: .*$", f"    model: {mesh[1]}"),
                      (r"(?m)^  input_service:.*$",
-                      f'  input_service: "{service}"')):
+                      f'  input_service: "{service}"'),
+                     (r"(?m)^  sharded_lookup:.*$",
+                      f"  sharded_lookup: {lookup}")):
         text, n = re.subn(pat, rep, text)
         if n != 1:
             raise SystemExit(f"phase 11: no {pat} in conf/train.yaml")
     with open(path, "w") as f:
         f.write(text)
     return dst
+
+
+def start_input_server(tmp, conf_dir, train_tsv):
+    """``tools.input_server`` for ``SHARDED_RANKS`` ranks on a subprocess
+    -> (the process, its port); its output drained in a thread."""
+    import subprocess
+    server = subprocess.Popen(
+        [sys.executable, "-m", "wide_deep_tpu_torch.tools.input_server",
+         "--conf_dir", conf_dir, "--port", "0", "--n_devices",
+         str(SHARDED_RANKS), "--n_procs", str(SHARDED_RANKS),
+         "--train_data", train_tsv, "--batch_size", str(BATCH)],
+        cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    line, deadline = "", time.time() + 120
+    while time.time() < deadline and "table shards)" not in line:
+        line = server.stdout.readline()
+        if not line and server.poll() is not None:
+            raise SystemExit("phase 11: the input server exited")
+    port = int(line.split("input service on :")[1].split()[0])
+    log(f"phase 11: {line.strip()}")
+    threading_drain(server)
+    return server, port
+
+
+def check_bytes(tag, res, conf_dir):
+    """Every step's exchange bytes a rank, by tag, equal
+    ``parallel.collective_stats``' prediction from shapes alone."""
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.parallel.collective_stats import step_collectives
+    config = Config(conf_dir)
+    mesh = res[0]["mesh"]
+    want = step_collectives(config, dict(config.train, batch_size=BATCH),
+                            mesh[0], mesh[1])["by_tag"]
+    for r in res:
+        for i, st in enumerate(r["steps"]):
+            if st["bytes"] != want:
+                raise SystemExit(f"phase 11: {tag} rank {r['rank']} step {i}"
+                                 f" counted {st['bytes']}, collective_stats "
+                                 f"predicts {want}")
+    log(f"phase 11: {tag}: every step's bytes a rank equal "
+        f"collective_stats' prediction: {want} (sum {sum(want.values())})")
+    return want
 
 
 def free_port():
@@ -3193,37 +3318,50 @@ def run_ranks(tmp, tag, conf_dir, model_dir, train_tsv, eval_tsv=None,
     return out
 
 
-def check_rank_steps(tag, res):
+def check_rank_steps(tag, res, dedup=False):
     """Each rank's steps launched the sharded sites (``SITES_SHARDED``; on
-    the d16 stream K2, or K1 when the plan row says ok=0), held step 0's
-    kernels to their plain versions, and the ranks' losses are the same
-    bits."""
+    the d16 stream K2, or K1 when the plan row says ok=0; with ``dedup``
+    ``SITES_DEDUP``, K2 never), held step 0's kernels to their plain
+    versions, and the ranks' losses are the same bits."""
+    sites_of = SITES_DEDUP if dedup else SITES_SHARDED
     for r in res:
         for i, s in enumerate(r["steps"]):
             d = dict(s["launches"])
             for k in ("K1", "K2", "K3", "d16 ok=0", "P1", "P2"):
                 d.setdefault(k, 0)
             check_sites(f"phase 11: {tag} rank {r['rank']} step {i}", d,
-                        SITES_SHARDED)
+                        sites_of, window=not dedup)
+        held = [h for h in r["held"] if "routed" not in h]
         sites = {}
-        for site, *_ in r["held"]:
-            sites[site] = sites.get(site, 0) + 1
-        ok_of = [h[3] for h in r["held"]]
-        want = dict(SITES_SHARDED)
+        for h in held:
+            sites[h["site"]] = sites.get(h["site"], 0) + 1
+        want = dict(sites_of)
         ok0 = r["steps"][0]["launches"].get("d16 ok=0", 0)
         if ok0:
             want["K1 d16 ok=0"] = 1
-        else:
+        elif not dedup:
             want["K2"] = 1
-        if sites != want or not all(ok_of):
+        if sites != want or not all(h["ok"] for h in held):
             raise SystemExit(f"phase 11: {tag} rank {r['rank']} step 0's "
-                             f"kernels {r['held']}, want sites {want}")
+                             f"kernels {held}, want sites {want}")
         log(f"phase 11: {tag} rank {r['rank']} ({r['device']}, "
             f"{r['backend']}) step 0's launches against their plain "
-            f"versions on the per-shard inputs (event ms, bound ms): " +
-            "; ".join(f"{site} ({shape}) max_abs_err {err:.3g} ok, "
-                      f"{ms:.4f} ms, bound {bound:.4f}"
-                      for site, shape, err, _, ms, bound in r["held"]))
+            f"versions on the per-shard inputs (event ms: kernel, plain, "
+            f"library; bound ms): " +
+            "; ".join(f"{h['site']} ({h['shape']}) max_abs_err "
+                      f"{h['max_abs_err']:.3g} ok, {h['ms']:.4f} / "
+                      f"{h['plain_ms']:.4f} / {h['library_ms']:.4f} ms, "
+                      f"bound {h['bound_ms']:.4f} ({h['bound_by']})"
+                      for h in held))
+        carry = [h for h in r["held"] if "routed" in h]
+        if carry:
+            log(f"phase 11: {tag} rank {r['rank']} the slot sums' K1 with "
+                f"and without the weight-0 entries routed out (event ms; "
+                f"device ms of the chunk and carry passes): " + "; ".join(
+                    f"{h['site']} {'routed' if h['routed'] else 'unrouted'}"
+                    f" ({h['live']} live of {h['entries']}) {h['ms']:.4f} "
+                    f"ms, chunk {h['chunk_ms']:.4f}, carry "
+                    f"{h['carry_ms']:.4f}" for h in carry))
     losses = [[s["loss"] for s in r["steps"]] for r in res]
     if any(x != losses[0] for x in losses[1:]):
         raise SystemExit(f"phase 11: {tag}: the ranks' losses differ: "
@@ -3316,22 +3454,8 @@ def phase_sharded(card, tmp):
         f"{gen_s:.1f} s")
 
     # the input service and the ranks on its slices
-    server = subprocess.Popen(
-        [sys.executable, "-m", "wide_deep_tpu_torch.tools.input_server",
-         "--conf_dir", conf_dir, "--port", "0", "--n_devices",
-         str(SHARDED_RANKS), "--n_procs", str(SHARDED_RANKS),
-         "--train_data", train_tsv, "--batch_size", str(BATCH)],
-        cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    server, port = start_input_server(tmp, conf_dir, train_tsv)
     try:
-        line, deadline = "", time.time() + 120
-        while time.time() < deadline and "table shards)" not in line:
-            line = server.stdout.readline()
-            if not line and server.poll() is not None:
-                raise SystemExit("phase 11: the input server exited")
-        port = int(line.split("input service on :")[1].split()[0])
-        log(f"phase 11: {line.strip()}")
-        threading_drain(server)
         sharded_conf(tmp, "conf_sharded", (SHARDED_RANKS, 1),
                      f"127.0.0.1:{port}")
         ranks_dir = os.path.join(tmp, "ranks")
@@ -3344,6 +3468,7 @@ def phase_sharded(card, tmp):
     losses = check_rank_steps("{data: 2, model: 1}", res)
     if len(losses) != SHARDED_STEPS:
         raise SystemExit(f"phase 11: the ranks took {len(losses)} steps")
+    explicit_bytes = check_bytes("{data: 2, model: 1}", res, conf_dir)
     worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
     for r in res:
         ms = [s["ms"] for s in r["steps"]]
@@ -3412,6 +3537,7 @@ def phase_sharded(card, tmp):
     res_m = run_ranks(tmp, "model2", conf_m, os.path.join(tmp, "ranks_m"),
                       train_tsv)
     losses_m = check_rank_steps("{data: 1, model: 2}", res_m)
+    check_bytes("{data: 1, model: 2}", res_m, conf_m)
     worst_m = max(abs(a - b) / abs(b)
                   for a, b in zip(losses_m, one_losses))
     log(f"phase 11: {{data: 1, model: 2}}: losses {losses_m} against one "
@@ -3429,8 +3555,126 @@ def phase_sharded(card, tmp):
     else:
         log(f"phase 11: one card ({n_cards}): the NCCL ranks on separate "
             f"cards did not run")
+
+    # sharded_lookup: dedup, on both meshes (the data axis behind an input
+    # service of its own, whose plans are the dedup exchange's)
+    dedup = {}     # tag: (conf dir, model dir, the ranks' results)
+    conf_dm = sharded_conf(tmp, "conf_dedup_model", (1, SHARDED_RANKS),
+                           lookup="dedup")
+    dir_dm = os.path.join(tmp, "ranks_dm")
+    dedup["{data: 1, model: 2}"] = (conf_dm, dir_dm, run_ranks(
+        tmp, "dedup_model2", conf_dm, dir_dm, train_tsv))
+    conf_dd = sharded_conf(tmp, "conf_dedup_data", (SHARDED_RANKS, 1),
+                           lookup="dedup")
+    server, port = start_input_server(tmp, conf_dd, train_tsv)
+    try:
+        sharded_conf(tmp, "conf_dedup_data", (SHARDED_RANKS, 1),
+                     f"127.0.0.1:{port}", lookup="dedup")
+        dir_dd = os.path.join(tmp, "ranks_dd")
+        dedup["{data: 2, model: 1}"] = (conf_dd, dir_dd, run_ranks(
+            tmp, "dedup_data2", conf_dd, dir_dd, train_tsv))
+    finally:
+        server.kill()
+        server.wait()
+    for tag, (conf_x, dir_x, res_x) in dedup.items():
+        losses_x = check_rank_steps(f"dedup {tag}", res_x, dedup=True)
+        want = check_bytes(f"dedup {tag}", res_x, conf_x)
+        worst_x = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses_x, one_losses))
+        dir_x = os.path.join(dir_x, "wide_deep")
+        step_x = committed_steps(dir_x)[-1]
+        diffs_x = state_rel_diff(dir_x, step_x, one_dir, o_step)
+        worst_leaf = max(diffs_x.items(), key=lambda kv: kv[1])
+        r0 = res_x[0]
+        ms = [st["ms"] for st in r0["steps"]]
+        log(f"phase 11: dedup {tag}: losses {losses_x} against one "
+            f"device's (worst relative {worst_x:.3e}, bar "
+            f"{SHARDED_LOSS_TOL:.3e}); step {step_x}'s state, worst leaf "
+            f"{worst_leaf[0]} {worst_leaf[1]:.3e} (bar "
+            f"{SHARDED_STATE_TOL:.3e}); step ms by CUDA events "
+            f"{[round(x, 2) for x in ms]} (median of steps 1-{len(ms) - 1}:"
+            f" {float(np.median(ms[1:])):.2f}); device busy a rank "
+            f"{[round(r['device_ms'], 3) for r in res_x]} ms a step (top "
+            f"{r0['top']}; the port's kernels {r0['ported_ms']}); the "
+            f"dedup all-gather {want.get('dedup_rows', 0)} bytes a rank a "
+            f"step beside the explicit lookup's "
+            f"{explicit_bytes.get('lookup', 0)} ({{data: 2, model: 1}}); "
+            f"all bytes {sum(want.values())} beside the explicit "
+            f"exchange's {sum(explicit_bytes.values())}; launches "
+            f"{r0['launches']}; peak {r0['memory_gb']:.2f} GB")
+        if (len(losses_x) != SHARDED_STEPS or worst_x > SHARDED_LOSS_TOL
+                or worst_leaf[1] > SHARDED_STATE_TOL or step_x != o_step):
+            raise SystemExit(f"phase 11: dedup {tag} left one device's "
+                             f"results")
     log(f"phase 11 in {time.time() - t_phase:.1f} s")
-    return [r["launches"] for r in res]
+    res_d = dedup["{data: 1, model: 2}"][2]
+    return ([r["launches"] for r in res],
+            [r["launches"] for r in res_d], res_d[0]["held"])
+
+
+def phase_perf_gate(profile_dir):
+    """Phase 12: the perf gate on phase 5's trace of 3 device-stage steps
+    (the bench tool under ``BENCH_PROFILE``): ``tools.parse_trace``'s
+    device events, ``tools.perf_regression capture`` into
+    build/perf_budget_capture.json and ``check`` of the trace against that
+    capture, which must pass; the bucket profile and the port's kernels a
+    step printed; fails when the trace holds no device event or a kernel
+    the step launched (K1, K3, and K2 or the d16 stream's K1) is missing
+    from the ``kernel`` bucket.  The committed perf_budget_torch.json is
+    compared and printed, not gated (tests/test_torch_chip_gates.py gates
+    it)."""
+    import contextlib
+    import io
+
+    from wide_deep_tpu_torch.tools import parse_trace
+    from wide_deep_tpu_torch.tools import perf_regression as pr
+    from wide_deep_tpu_torch.tools.bench import PROFILE_STEPS
+    t0 = time.time()
+
+    def run(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = pr.main(args)
+        return rc, buf.getvalue().strip().splitlines()[-1]
+
+    try:
+        events = parse_trace.device_events(profile_dir)
+        if not events:
+            raise SystemExit(f"phase 12: no device event in a trace under "
+                             f"{profile_dir}")
+        out = os.path.join(ROOT, "build", "perf_budget_capture.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        steps = ["--profile_dir", profile_dir, "--steps", str(PROFILE_STEPS)]
+        rc, line = run(["capture"] + steps + ["--out", out])
+        if rc:
+            raise SystemExit(f"phase 12: capture failed: {line}")
+        rc, verdict = run(["check"] + steps + ["--budget", out])
+        if rc:
+            raise SystemExit(f"phase 12: the trace fails against its own "
+                             f"capture: {verdict}")
+        with open(out) as f:
+            meta = json.load(f)
+        kernels = meta["kernels"]
+        need = {"range_chunk_kernel", "rowdma_kernel"}
+        if kernels.get("range_chunk_kernel", {}).get("launches", 0) < 5:
+            need.add("window_scatter_kernel")     # d16 ok=1: K2 ran
+        missing = sorted(need - set(kernels))
+        log(f"phase 12: {sum(n for _, n in events.values())} device events "
+            f"in the trace; ms a step by bucket "
+            f"{meta['buckets_ms_per_step']}; the port's kernels a step "
+            f"{kernels}; card {meta['card']!r}; check against its own "
+            f"capture: {verdict}")
+        if missing:
+            raise SystemExit(f"phase 12: the step's kernels {missing} are "
+                             f"missing from the kernel bucket")
+        committed = os.path.join(ROOT, "perf_budget_torch.json")
+        if os.path.exists(committed):
+            rc, verdict = run(["check"] + steps + ["--budget", committed])
+            log(f"phase 12: against the committed perf_budget_torch.json "
+                f"(not gated): {verdict}")
+    finally:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    log(f"phase 12 in {time.time() - t0:.1f} s")
 
 
 def threading_drain(proc):
@@ -3511,7 +3755,8 @@ def main():
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    phase_bench(card)
+    profile_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    phase_bench(card, profile_dir)
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -3532,9 +3777,10 @@ def main():
         release()
         cnn_counts = phase_cnn(card, tmp)
         release()
-        sharded = phase_sharded(card, tmp)
+        sharded, sharded_dedup, dedup_held = phase_sharded(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_perf_gate(profile_dir)
 
     # K1 (the d16 ok=0 site on file steps), K2 and K3 launch on the train
     # path, P1 and P2 on the tools' path; the CLI path's launches beside
@@ -3544,11 +3790,31 @@ def main():
         if not row["name"].startswith("P"):
             row["launches_cli"] = cli_counts.get(count_key(row["name"]), 0)
             row["launches_cnn"] = cnn_counts.get(count_key(row["name"]), 0)
-            # each rank's launches on the sharded path (phase 11)
+            # each rank's launches on the sharded path (phase 11), and
+            # under sharded_lookup: dedup
             row["launches_sharded"] = [s.get(count_key(row["name"]), 0)
                                        for s in sharded]
+            row["launches_dedup"] = [s.get(count_key(row["name"]), 0)
+                                     for s in sharded_dedup]
         if "bf16" in row:
             row["bf16"]["launches"] = tool_counts["P2 bf16"]
+    # the dedup exchange's slot sums, a K1 site of its own: its numbers
+    # from rank 0's step 0 of the dedup run {data: 1, model: 2}
+    for h in dedup_held:
+        if not h["site"].endswith(" dedup"):
+            continue
+        dim = h["site"].split()[1]
+        kernels.append({
+            "name": f"K1 range_scatter_add {dim} dedup", "route": "cuda",
+            "source": "wide_deep_tpu_torch/csrc/range_scatter.cu",
+            "replaces": "wide_deep_tpu/ops/scatter.py:184",
+            "launches": sharded_dedup[0].get(h["site"], 0),
+            "launches_dedup": [s.get(h["site"], 0) for s in sharded_dedup],
+            "shape": h["shape"], "max_abs_err": h["max_abs_err"],
+            "tolerance": "<= 1e-6 of the row's sum of |g| + 1e-6",
+            "ok": h["ok"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": h["library_ms"]})
     if not all(row["launches"] > 0 for row in kernels):
         raise SystemExit(f"a kernel never ran on its path: train "
                          f"{main_counts}, tools {tool_counts}")
@@ -3564,6 +3830,10 @@ def main():
                for s in sharded):
         raise SystemExit(f"a kernel never ran on the sharded path: "
                          f"{sharded}")
+    if not all(all(s.get(k, 0) > 0 for k in SITES_DEDUP)
+               for s in sharded_dedup):
+        raise SystemExit(f"a kernel never ran on the dedup path: "
+                         f"{sharded_dedup}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1333,3 +1333,81 @@ def test_cuda_two_ranks_on_one_card(cuda_device, tmp_path):
                 bound = bound + BF16_ULP * np.abs(h[i]["grad"])
             assert (np.abs(k[i]["grad"] - h[i]["grad"]) <= bound).all(), (
                 c["name"])
+
+
+# the dedup exchange's slot sums at the production per-shard shapes
+# (2 ranks, batch 25,600, {data: 1, model: 2}): the d8 group's
+# 1,024,000-entry pool (870,400 live) into 1,203,200 rows and the d16
+# group's 102,400 entries (76,800 live) into 1,500,160 rows, each with its
+# folded wide column
+DEDUP_SITES = [("d8", 1024000, 870400, 1203200, 9),
+               ("d16", 102400, 76800, 1500160, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site,n,live,rows,d", DEDUP_SITES,
+                         ids=[s[0] for s in DEDUP_SITES])
+def test_cuda_dedup_slot_sum_matches_plain(cuda_device, site, n, live, rows,
+                                           d):
+    """``exchange.slot_sum`` on the card (K1 over the slots sorted on the
+    card, weight-0 entries routed out) against its plain version on the
+    host, within 1e-6 of each row's sum of |g|; the same bits twice, and
+    the same as without the routing (their cotangent rows are zero)."""
+    from wide_deep_tpu_torch.parallel.exchange import slot_sum
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, rows, n).astype(np.int32)
+    wts = np.ones(n, np.float32)
+    pad = rng.permutation(n)[:n - live]
+    ids[pad], wts[pad] = 0, 0.0
+    plan = tsc.make_dedup_plan(ids.reshape(-1, 1), rows, 2)
+    n_slots = 2 * plan["uids"].shape[1]
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    g[pad] = 0.0
+    host = [torch.from_numpy(a) for a in (plan["slots"].reshape(-1), g,
+                                          wts != 0)]
+    want = slot_sum(host[0], host[1], n_slots, host[2])
+    mag = slot_sum(host[0], host[1].abs(), n_slots, host[2])
+    card = [t.to(cuda_device) for t in host]
+    k1 = tsc.range_launches
+    got = slot_sum(card[0], card[1], n_slots, card[2])
+    again = slot_sum(card[0], card[1], n_slots, card[2])
+    unrouted = slot_sum(card[0], card[1], n_slots)
+    assert tsc.range_launches == k1 + 3
+    assert torch.equal(got, again)
+    assert got.dtype == torch.float32 and got.shape == (n_slots, d)
+    assert ((got.cpu() - want).abs() <= 1e-6 * mag + 1e-6).all()
+    assert ((unrouted - got).abs().cpu() <= 1e-6 * mag + 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card run the dedup exchange (tests/
+    test_torch_dedup.py's gathers): the same rows as two ranks on the
+    host, and their gradients within 1e-6 of each row's sum of |g|."""
+    from torch_rank_cases import run_ranks
+    cases = []
+    for i, mesh in enumerate(((1, 2), (2, 1))):
+        rng = np.random.default_rng(i)
+        rows, d, b, p = 8192, 17, 256, 8
+        ids = rng.integers(0, rows, (b, p)).astype(np.int32)
+        wts = np.ones((b, p), np.float32)
+        m = rng.random((b, p)) < 0.3
+        ids[m], wts[m] = 0, 0.0
+        cot = rng.normal(size=(b, p, d)).astype(np.float32)
+        cot[m] = 0.0
+        cases.append({"name": f"dedup_{mesh}", "mesh": mesh, "kind": "dedup",
+                      "table": rng.normal(size=(rows, d)).astype(np.float32),
+                      "ids": ids, "wts": wts, "cot": cot, "dtype": "float32",
+                      "plan": tsc.make_dedup_plan(ids, rows, 2)})
+    host = run_ranks("exchange", 2, tmp_path, cases)
+    card = run_ranks("exchange", 2, tmp_path, cases, device="cuda")
+    for i, c in enumerate(cases):
+        mag = np.zeros_like(c["table"], np.float64)
+        np.add.at(mag, c["ids"].reshape(-1),
+                  np.abs(c["cot"].reshape(-1, c["table"].shape[1])))
+        g_host = np.concatenate([h[i]["grad"] for h in host])
+        g_card = np.concatenate([k[i]["grad"] for k in card])
+        for h, k in zip(host, card):
+            np.testing.assert_array_equal(k[i]["out"], h[i]["out"])
+            assert k[i]["bytes"] == h[i]["bytes"]
+        assert (np.abs(g_card - g_host) <= 1e-6 * mag + 1e-6).all(), c["name"]

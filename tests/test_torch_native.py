@@ -210,15 +210,33 @@ def test_failed_compile_raises(monkeypatch, tmp_path):
                 if f.endswith(".so")]
 
 
-def test_sharded_plan_is_refused(conf_dir):
-    """Per-shard range, window and compact plans are ported (tests/
-    test_torch_parallel.py holds them to the JAX package's); a plan for
-    the dedup exchange, which is not, is refused when a train batch would
-    carry it."""
-    from wide_deep_tpu_torch.features.native import NativeTransformer
-    _, tp = plan_pair(conf_dir, scatter_shards=2, shard_threshold=1)
-    tnt = NativeTransformer(tp)
-    tp.shard_kind = "dedup"
-    text = "\n".join("\t".join(r) for r in train_rows(8)).encode("utf-8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnt.transform_text(text, 8, 8, "train")
+def test_sharded_plan_is_refused(conf_dir, monkeypatch):
+    """The dedup case of the loaders' bit-for-bit test: with the dedup
+    exchange's plans (``dscat_*``, beside the fused optimizer's per-shard
+    compact plans) the port's C++ binding and Python transformer give the
+    JAX package's native train batch bit for bit; a shard over its cap is
+    refused with the JAX package's error (fastdata.cc's -4)."""
+    from wide_deep_tpu.features.native import NativeTransformer as JNT
+    from wide_deep_tpu_torch.features.native import NativeTransformer as TNT
+    from wide_deep_tpu_torch.features.pipeline import FeatureTransformer as TT
+    import wide_deep_tpu.ops.scatter as jsc
+    import wide_deep_tpu_torch.ops.scatter as tsc
+    force_plans(monkeypatch, "range")
+    kw = dict(sparse_opt=True, scatter_shards=2, shard_threshold=1,
+              shard_kind="dedup")
+    jp, tp = plan_pair(conf_dir, **kw)
+    rows = train_rows(40)
+    text = "\n".join("\t".join(r) for r in rows).encode("utf-8")
+    got = TNT(tp).transform_text(text, len(rows), 48, "train")
+    assert_batches_equal(got, JNT(jp).transform_text(text, len(rows), 48,
+                                                     "train"), "jax native")
+    assert_batches_equal(got, TT(tp).transform(rows, 48, "train"), "python")
+    assert any(k.startswith("dscat_slots_") for k in got)
+    # a cap of one id a shard: every loader refuses the batch
+    for mod in (jsc, tsc):
+        monkeypatch.setattr(mod, "DEDUP_SLACK", 1e-9)
+    with pytest.raises(ValueError) as je:
+        JNT(jp).transform_text(text, len(rows), 48, "train")
+    with pytest.raises(ValueError) as te:
+        TNT(tp).transform_text(text, len(rows), 48, "train")
+    assert str(te.value) == str(je.value)

@@ -150,8 +150,15 @@ def test_build_training_plan_matches_jax(conf_dir, which, n_dev, n_procs,
 
 
 def test_dedup_lookup_refuses_naming_roadmap(conf_dir, tmp_path):
-    from wide_deep_tpu_torch.config import Config
-    from wide_deep_tpu_torch.training.loop import build_training_plan
+    """``sharded_lookup: dedup``: build_training_plan gives the JAX
+    package's plan fields for each topology (the dedup plans on a mesh fed
+    with the global batch, no kernel plans, the fused optimizer's compact
+    plans kept; the explicit exchange's gate where no host sees the global
+    batch), and the same batch spec."""
+    from wide_deep_tpu.config import Config as JConfig
+    from wide_deep_tpu.training.loop import build_training_plan as jbuild
+    from wide_deep_tpu_torch.config import Config as TConfig
+    from wide_deep_tpu_torch.training.loop import build_training_plan as tb
     import shutil
     d = str(tmp_path / "conf")
     shutil.copytree(conf_dir, d)
@@ -160,9 +167,26 @@ def test_dedup_lookup_refuses_naming_roadmap(conf_dir, tmp_path):
         text = f.read()
     with open(p, "w") as f:
         f.write(text.replace("sharded_lookup: gspmd", "sharded_lookup: dedup"))
-    c = Config(d)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_training_plan(c, dict(c.train), "wide_deep", 2)
+    jc, tc = JConfig(d), TConfig(d)
+    conf = dict(jc.train, pack_budget=3, batch_size=64, shard_threshold=1,
+                scatter_mode="pallas", sparse_optimizer=True)
+    for n_dev, n_procs, service in TOPOLOGIES:
+        jp, explicit, dedup = jbuild(jc, conf, "wide_deep", n_dev,
+                                     n_procs=n_procs,
+                                     global_batch_input=service)
+        tp = tb(tc, dict(conf), "wide_deep", n_dev, n_procs=n_procs,
+                global_batch_input=service)
+        for attr in ("scatter_shards", "pallas_scatter", "sparse_opt",
+                     "shard_kind", "shard_threshold"):
+            assert getattr(tp, attr) == getattr(jp, attr), (attr, n_dev)
+        js, ts = jp.batch_spec(64), tp.batch_spec(64)
+        assert {k: (tuple(v[0]), np.dtype(v[1])) for k, v in ts.items()} \
+            == {k: (tuple(v[0]), np.dtype(v[1])) for k, v in js.items()}
+        assert dedup == (n_dev > 1 and (n_procs == 1 or service))
+        assert tp.shard_kind == ("dedup" if dedup else "scatter")
+        if dedup:
+            assert tp.scatter_shards == n_dev and not tp.pallas_scatter
+            assert any(k.startswith("dscat_uids_") for k in ts)
 
 
 # ----------------------------------------------- per-shard plans, loaders

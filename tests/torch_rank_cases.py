@@ -96,6 +96,16 @@ def case_exchange(mesh_of, args):
             ids = torch.from_numpy(c["ids"].reshape(-1)).long().to(dev)
             cot = torch.from_numpy(c["cot"]).to(dev)
             out = exchange.StaticRowsGather.apply(mesh, ids, table)
+        elif c["kind"] == "dedup":
+            plan = c["plan"]
+            slots = torch.from_numpy(_local(plan["slots"], mesh)).to(dev)
+            uids = torch.from_numpy(plan["uids"][mesh.shard]).to(dev)
+            live = (torch.from_numpy(_local(c["wts"], mesh) != 0).to(dev)
+                    if c.get("wts") is not None else None)
+            cot = torch.from_numpy(_local(c["cot"], mesh)).reshape(
+                slots.numel(), -1).to(dev)
+            out = exchange.dedup_sharded_gather([table], slots, uids, mesh,
+                                                live)
         else:
             ids = torch.from_numpy(_local(c["ids"], mesh).reshape(-1)).to(dev)
             cot = torch.from_numpy(_local(c["cot"], mesh)).reshape(
@@ -161,8 +171,11 @@ def case_trainer(mesh_of, args):
                  model_dir=args["model_dir"], overrides=args["overrides"],
                  device="cpu", mesh=mesh)
     if args.get("params") is not None:
-        tr.params = {k: v for k, v in args["params"].items()}
-        tr.mstate = args["mstate"]
+        # a copy: the Trainer shards and updates its params in place, and
+        # several cases of one spawn may start from the same tree
+        import copy
+        tr.params = copy.deepcopy(args["params"])
+        tr.mstate = copy.deepcopy(args["mstate"])
     tr.ensure_initialized(restore=bool(args.get("restore")))
     out = {"rank": mesh.rank, "step0": tr.global_step,
            "paths": sorted(tr.sharded_paths),
@@ -171,12 +184,21 @@ def case_trainer(mesh_of, args):
         seen = []
         orig = tr.train_batch
 
+        step_bytes = []
+
         def record(b, **kw):
             seen.append(sorted(k for k in b))
-            return orig(b, **kw)
+            before = dict(mesh_lib.collective_bytes)
+            r = orig(b, **kw)
+            step_bytes.append({
+                k: v - before.get(k, 0)
+                for k, v in mesh_lib.collective_bytes.items()
+                if v != before.get(k, 0)})
+            return r
         tr.train_batch = record
         tr.train_file(args["data"], max_steps=args.get("steps"))
         out["plan_keys"] = seen[0] if seen else None
+        out["step_bytes"] = step_bytes
     out["losses"] = [float(x) for x in tr.losses]
     out["eval"] = tr.evaluate(args["eval_data"]) if args.get(
         "eval_data") else None
@@ -219,8 +241,14 @@ def _force_plans(mode: str):
         and g.folded and sharded_ok(self, g))
 
 
+def case_many(mesh_of, args):
+    """Several cases in one spawn of the ranks: ``args`` a list of (case,
+    its args) -> their results, in order."""
+    return [CASES[c](mesh_of, a) for c, a in args]
+
+
 CASES = {"exchange": case_exchange, "sparse": case_sparse,
-         "trainer": case_trainer}
+         "trainer": case_trainer, "many": case_many}
 
 
 def main(argv):

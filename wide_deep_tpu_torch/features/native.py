@@ -279,26 +279,28 @@ class NativeTransformer:
             out["cont"] = cont
 
         # train mode: the kernel plans of the big groups (ops/scatter.py),
-        # range, window and compact, in the order fastdata.cc fills them;
-        # per table shard (a leading [n_shards] axis, plus ``ok`` / ``live``
-        # flags) when the plan has scatter_shards > 1 (format v12, the JAX
-        # package's features/native.py:39-73)
-        masks = {"scat": 0, "wscat": 0, "sopt": 0}
+        # range, window, compact and dedup, in the order fastdata.cc fills
+        # them; per table shard (a leading [n_shards] axis, plus ``ok`` /
+        # ``live`` flags) when the plan has scatter_shards > 1 (format v12,
+        # the JAX package's features/native.py:39-73, 214-305)
+        masks = {"scat": 0, "wscat": 0, "sopt": 0, "dscat": 0}
+        caps = (ctypes.c_int64 * len(plan.groups))()
         if mode == "train":
-            if any(plan.dedup_group(g, B) for g in plan.groups):
-                raise NotImplementedError(
-                    "dedup-exchange plans are not ported yet (ROADMAP.md "
-                    "Queue 1)")
             per_kind: Dict[str, list] = {k: [] for k in masks}
             for gi, g in enumerate(plan.groups):
                 n_ids = B * plan.group_packed_len[g.dim]
                 for prefix, spec in plan._plan_specs(g, n_ids, B):
                     masks[prefix] |= 1 << gi
                     per_kind[prefix].append((g, spec))
+                    if prefix == "dscat":
+                        # the uids' trailing dim is the dedup cap: C++
+                        # takes it from here rather than recomputing the
+                        # float math (std::exp may differ by an ulp)
+                        caps[gi] = spec["uids"][0][1]
             for prefix, entries in per_kind.items():
                 for g, spec in entries:
                     for key in ("uids", "ids", "perm", "tiles", "ok",
-                                "live"):
+                                "live", "slots"):
                         if key in spec:
                             shape, dt = spec[key]
                             arr = np.zeros(shape, dt)
@@ -307,7 +309,6 @@ class NativeTransformer:
 
         ptrs = (ctypes.c_void_p * len(ptr_order))(
             *[a.ctypes.data_as(ctypes.c_void_p).value for a in ptr_order])
-        caps = (ctypes.c_int64 * len(plan.groups))()
         n = self._lib.wdt_transform(
             self._plan_handle, text, len(text), B,
             0 if mode == "pred" else 1,
@@ -316,7 +317,12 @@ class NativeTransformer:
             float(1.0 if self.pos_weight is None else self.pos_weight),
             float(1.0 if self.neg_weight is None else self.neg_weight),
             1 if self.weighted else 0, self.n_threads, masks["scat"],
-            masks["wscat"], masks["sopt"], 0, caps, ptrs)
+            masks["wscat"], masks["sopt"], masks["dscat"], caps, ptrs)
+        if n == -4:
+            raise ValueError(
+                "dedup exchange: a table shard's unique-id count exceeded "
+                "its static cap — unusually spread ids; raise DEDUP_SLACK "
+                "or use sharded_lookup: explicit")
         if n < 0:
             raise RuntimeError(f"wdt_transform failed: {n}")
         if mode == "pred":

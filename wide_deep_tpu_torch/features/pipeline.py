@@ -53,8 +53,9 @@ def list_files(path: str) -> List[str]:
 def train_plans(plan: FeaturePlan, g, batch_size: int, ids: np.ndarray,
                 wts: np.ndarray) -> Batch:
     """The kernel plans a train batch carries for dim group ``g``: a range
-    plan (``scat_*``), a window plan (``wscat_*``) and/or a compact plan for
-    the fused sparse optimizer (``sopt_*``), as the plan's gates decide;
+    plan (``scat_*``), a window plan (``wscat_*``), the dedup exchange's
+    unique ids and slots (``dscat_*``) and/or a compact plan for the fused
+    sparse optimizer (``sopt_*``), as the plan's gates decide;
     per table shard when the plan has ``scatter_shards > 1`` (the JAX
     package's features/pipeline.py:300-360).  Weights route zero-gradient
     pool padding out of the range and window streams."""
@@ -72,6 +73,9 @@ def train_plans(plan: FeaturePlan, g, batch_size: int, ids: np.ndarray,
               if s > 1 else sc.make_window_plan(flat_ids, g.rows, flat_wts))
         for key, arr in wp.items():
             out[f"wscat_{key}_d{g.dim}"] = arr
+    if plan.dedup_group(g, batch_size):
+        for key, arr in sc.make_dedup_plan(ids, g.rows, s).items():
+            out[f"dscat_{key}_d{g.dim}"] = arr
     if plan.sparse_opt_group(g, batch_size):
         cp = (sc.make_sharded_compact_plan(flat_ids, g.rows, s)
               if s > 1 else sc.make_compact_plan(flat_ids, g.rows))

@@ -229,10 +229,6 @@ class FeaturePlan:
         if shard_kind not in ("scatter", "dedup"):
             raise ValueError(f"shard_kind must be scatter|dedup, "
                              f"got {shard_kind!r}")
-        if shard_kind == "dedup" and self.scatter_shards > 1:
-            raise NotImplementedError(
-                "the dedup exchange (sharded_lookup: dedup) is not ported "
-                "yet (ROADMAP.md Queue 1); use sharded_lookup: explicit")
         self.shard_kind = shard_kind
         # sparse_opt: batches additionally carry a compact (dedup) scatter
         # plan per huge dim group (ops/scatter.make_compact_plan) so the
@@ -507,7 +503,8 @@ class FeaturePlan:
     def _plan_specs(self, g: "DimGroup", n_ids: int, batch_size: int):
         """(batch key prefix, spec) of each kernel plan a train batch
         carries for group ``g``: range (``scat``), window (``wscat``),
-        compact (``sopt``); per table shard when ``scatter_shards > 1``."""
+        compact (``sopt``); per table shard when ``scatter_shards > 1``;
+        the dedup exchange's unique ids and slots (``dscat``)."""
         from wide_deep_tpu_torch.ops import scatter as sc
         s = self.scatter_shards
         out = []
@@ -517,6 +514,9 @@ class FeaturePlan:
         if self.window_group(g, batch_size):
             out.append(("wscat", sc.sharded_window_batch_spec(n_ids, g.rows, s)
                         if s > 1 else sc.window_batch_spec(n_ids, g.rows)))
+        if self.dedup_group(g, batch_size):
+            out.append(("dscat", sc.dedup_batch_spec(
+                n_ids, g.rows, s, (batch_size, n_ids // batch_size))))
         if self.sparse_opt_group(g, batch_size):
             out.append(("sopt", sc.sharded_compact_plan_spec(n_ids, s)
                         if s > 1 else sc.compact_plan_spec(n_ids)))

@@ -18,7 +18,8 @@ The port of wide_deep_tpu/models/deep.py on one device:
 * On a mesh of ranks (``shard``: the mesh and the row-sharded param paths,
   parallel/exchange.enable_explicit_lookup) every gather from a row-sharded
   table goes through the exchange (JAX ``table_gather``, deep.py:384-411
-  there), with the rank's per-shard plan row when the batch carries one;
+  there), with the rank's per-shard plan row when the batch carries one,
+  or the dedup exchange when it carries that plan (``dscat_*``);
   replicated tables sum their gradient in a fixed order (K1 over the
   stably sorted ids on the card); BatchNorm's masked moments are taken over
   the global batch (an all-reduce over 'data', deep.py:568-580 there).
@@ -414,11 +415,15 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
             scat = _plan_of(batch, g.dim)
             wide_rows = None
             if ("dnn", "embed", f"d{g.dim}") in sharded:
+                # a weight-0 entry's cotangent is zero (its row is
+                # weighted by wts below, its fold row by wts > 0), so the
+                # dedup backward may leave it out of its slot sum
                 gathered, wide_rows = _sharded_gather(
                     mesh, table, ids, shard_plan_of(batch, g.dim),
                     fold_params[f"d{g.dim}"]
                     if fold_params is not None and g.folded else None,
-                    detach=sinks is not None and f"d{g.dim}" in sinks)
+                    detach=sinks is not None and f"d{g.dim}" in sinks,
+                    dedup=dedup_plan_of(batch, g.dim), live=wts != 0)
             elif sinks is not None and f"d{g.dim}" in sinks:
                 gathered = table.detach().index_select(0, ids)
             elif fold_params is not None and g.folded:
@@ -455,18 +460,35 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
     return torch.cat(parts, dim=-1), fold_wide
 
 
-def _sharded_gather(mesh, table, ids, plan, fcol, detach: bool):
+def dedup_plan_of(batch, dim: int):
+    """The rank's dedup-exchange plan (``dscat_*``: its shard's unique ids,
+    its data slice's slots), or None."""
+    if f"dscat_uids_d{dim}" not in batch:
+        return None
+    return {"uids": batch[f"dscat_uids_d{dim}"],
+            "slots": batch[f"dscat_slots_d{dim}"]}
+
+
+def _sharded_gather(mesh, table, ids, plan, fcol, detach: bool,
+                    dedup=None, live=None):
     """A row-sharded group's rows through the exchange -> (embedding rows
-    [N, D], fold rows [N, n] in fcol's dtype, or None).  The fold columns
-    ride the same exchange (the table and its fold shard concatenated
-    column-wise, as the JAX package's explicit path concatenates them);
-    ``detach``: the gradient goes to the step's sink instead."""
+    [N, D], fold rows [N, n] in fcol's dtype, or None): the dedup exchange
+    where the batch carries its plan (``dedup``, deep.py:400-402 there),
+    else the explicit one, with the rank's kernel plan row if any.  The
+    fold columns ride the same exchange (the table and its fold shard
+    concatenated column-wise, as the JAX package's explicit path
+    concatenates them); ``detach``: the gradient goes to the step's sink
+    instead."""
     if detach:
         return exchange.gather_rows_nograd(table.detach(), ids, mesh), None
     tables = [table] if fcol is None else [table, fcol]
-    full = exchange.planned_sharded_gather(tables, ids, plan, mesh) \
-        if plan is not None else exchange.explicit_sharded_gather(
-            tables, ids, mesh)
+    if dedup is not None:
+        full = exchange.dedup_sharded_gather(tables, dedup["slots"],
+                                             dedup["uids"], mesh, live)
+    elif plan is not None:
+        full = exchange.planned_sharded_gather(tables, ids, plan, mesh)
+    else:
+        full = exchange.explicit_sharded_gather(tables, ids, mesh)
     d = table.shape[1]
     if fcol is None:
         return full, None

@@ -482,6 +482,83 @@ def make_sharded_compact_plan(ids_flat: np.ndarray, rows: int,
     return out
 
 
+# ------------------------------------------------------------- dedup plans
+# Host side of the dedup exchange (parallel/exchange.DedupGather, train.yaml
+# sharded_lookup: dedup; the JAX package's ops/scatter.py:686-782): per table
+# shard, the UNIQUE ids the whole batch needs (localized, sentinel-padded to
+# a static cap), plus a per-entry flat slot (shard*cap + position) mapping
+# each batch entry to its row in the all-gathered unique-row block.  The
+# exchange then moves O(unique x D) row payload instead of the explicit
+# exchange's O(B x P x D): the win grows with id duplication (hot keys).
+DEDUP_SLACK = 1.5  # cap = slack x the expected unique count per shard
+
+
+def dedup_cap(n_ids: int, rows: int, n_shards: int) -> int:
+    """Static per-shard unique-id cap: DEDUP_SLACK x the expected unique
+    count of n_ids uniform draws over rows (hashed ids; real skew only
+    LOWERS the unique count), ALIGN_IDS-aligned, clamped by the always-safe
+    bounds (shard_rows, n_ids).  The same float arithmetic, in the same
+    order, as the JAX package's, so the caps agree bit for bit."""
+    shard_rows = rows // n_shards
+    lam = n_ids / float(rows)
+    e_unique = rows * (1.0 - np.exp(-lam))
+    cap = int(np.ceil(DEDUP_SLACK * e_unique / n_shards / ALIGN_IDS)
+              ) * ALIGN_IDS
+    safe = ((shard_rows + ALIGN_IDS - 1) // ALIGN_IDS) * ALIGN_IDS
+    return max(ALIGN_IDS, min(cap, safe, n_ids))
+
+
+def dedup_batch_spec(n_ids: int, rows: int, n_shards: int,
+                     batch_shape) -> dict:
+    """Shapes/dtypes of the per-batch dedup-plan arrays."""
+    cap = dedup_cap(n_ids, rows, n_shards)
+    return {"uids": ((n_shards, cap), np.int32),
+            "slots": (tuple(batch_shape), np.int32)}
+
+
+def make_dedup_plan(ids: np.ndarray, rows: int, n_shards: int):
+    """Host: [B, P] id matrix -> {uids [S, cap], slots [B, P]} np arrays.
+
+    ``uids[s]`` holds shard s's unique ids LOCALIZED to its row range,
+    sorted, padded with the sentinel ``shard_rows`` (out of local range:
+    gathers mask it, scatters drop it); ``slots[b, p]`` = s*cap + j where
+    entry (b, p)'s id is ``uids[s, j]``.  Raises when a shard's unique
+    count exceeds the static cap (use sharded_lookup: explicit for such
+    data) or an id lies outside [0, rows)."""
+    flat = ids.reshape(-1)
+    n = int(flat.shape[0])
+    if rows % n_shards:
+        raise ValueError(f"rows {rows} % n_shards {n_shards} != 0")
+    shard_rows = rows // n_shards
+    cap = dedup_cap(n, rows, n_shards)
+    uniq, inverse = np.unique(flat, return_inverse=True)
+    if len(uniq) and (uniq[0] < 0 or uniq[-1] >= rows):
+        # an out-of-range id would fall outside every shard's bounds and
+        # leave its slot unassigned: fail as the C++ emitter does
+        raise ValueError(
+            f"dedup plan: ids out of range [0, {rows}): "
+            f"min={int(uniq[0])}, max={int(uniq[-1])} — miswired feature "
+            f"or wrong table rows")
+    bounds = np.searchsorted(
+        uniq, np.arange(n_shards + 1, dtype=np.int64) * shard_rows,
+        side="left")
+    counts = np.diff(bounds)
+    if counts.max(initial=0) > cap:
+        raise ValueError(
+            f"dedup exchange: a table shard needs {int(counts.max())} "
+            f"unique ids > static cap {cap} (n_ids={n}, rows={rows}, "
+            f"shards={n_shards}); unusually spread ids — raise "
+            f"DEDUP_SLACK or use sharded_lookup: explicit")
+    uids = np.full((n_shards, cap), shard_rows, np.int32)
+    pos = np.empty(len(uniq), np.int64)
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        uids[s, :hi - lo] = uniq[lo:hi] - s * shard_rows
+        pos[lo:hi] = s * cap + np.arange(hi - lo)
+    slots = pos[inverse].reshape(ids.shape).astype(np.int32)
+    return {"uids": uids, "slots": slots}
+
+
 # ---------------------------------------------------------- device wrappers
 _FLOATS = (torch.float32, torch.bfloat16)
 

@@ -26,6 +26,11 @@ shard:
 * without a plan (``explicit_sharded_gather``, exchange.py:48-90 there):
   that exact sum.
 
+``sharded_lookup: dedup`` takes ``DedupGather`` instead (exchange.py:240-333
+there): the host plan names each shard's unique ids and each entry's slot,
+so one all-gather of the unique rows over every rank serves the forward
+and its transpose, a reduce-scatter of the K1 slot sums, the backward.
+
 The collectives all run before any branch, so ranks that disagree on ``ok``
 never wait on each other.  On the CPU K1 and K2 are their plain versions.
 The forward equals ``index_select`` on the whole table bit for bit.  The
@@ -153,6 +158,106 @@ def planned_sharded_gather(tables: Sequence[torch.Tensor],
     """The same forward; the backward runs K1 or K2 on the rank's plan row
     (exchange.py:104-257 there)."""
     return ExchangeGather.apply(mesh, ids, plan, *tables)
+
+
+def slot_stream(slots: torch.Tensor, n_slots: int,
+                live: Optional[torch.Tensor] = None):
+    """-> (keys, order): ``slots`` [N] stably sorted on the device, as
+    int32 keys and the int32 permutation that sorts them; the entries
+    where ``live`` [N] is False go to the sentinel ``n_slots``, past
+    every run, which K1 drops."""
+    keys = slots.long()
+    if live is not None:
+        keys = torch.where(live, keys, torch.full_like(keys, n_slots))
+    order = torch.argsort(keys, stable=True)
+    return keys[order].int().contiguous(), order.int().contiguous()
+
+
+def slot_sum(slots: torch.Tensor, g: torch.Tensor, n_slots: int,
+             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[n_slots, D] float32 sum of the rows of ``g`` [N, D] by ``slots``
+    [N], rounded once: K1 over ``slot_stream`` (the dedup exchange's
+    first backward step).  The entries where ``live`` is False leave the
+    sum, so their rows of ``g`` must be zero; the pool padding's one slot
+    (id 0) then sends no run of ~10^5 entries through K1's carry pass."""
+    from wide_deep_tpu_torch.ops.scatter import sorted_stream_sum
+    keys, order = slot_stream(slots, n_slots, live)
+    return sorted_stream_sum(keys, order, g.float().contiguous(), n_slots,
+                             torch.float32)
+
+
+class DedupGather(torch.autograd.Function):
+    """The dedup exchange (``sharded_lookup: dedup``; exchange.py:240-333
+    there): rows of the column-wise concatenation of row-sharded
+    ``tables`` at the entries of the host plan (``uids``: this rank's
+    shard's [cap] unique local ids, sentinel ``shard_rows`` past them;
+    ``slots``: this rank's data slice's [N_local] flat slots ``s * cap +
+    j``) -> [N_local, sum D_i] in the first table's dtype.
+
+    Forward: the shard's unique rows (sentinels zero), one all-gather over
+    every rank (``dedup_rows``: S x cap x D, whatever the duplication),
+    then each entry's row by its slot.  Backward, the exact transposes:
+    the cotangent summed by slot into [S * cap, D] float32 (``slot_sum``,
+    K1 on the card; model ranks other than 0 hold the same data slice's
+    cotangent and add zeros, or the grads would be multiplied by
+    ``model``), a reduce-scatter over every rank (``dedup_rows_bwd``), and
+    the shard's cap rows written at its unique ids into a zero
+    [shard_rows, D] gradient (the ids are unique: a write, no sum).
+    ``live`` [N_local] bool, or None: the entries where it is False leave
+    the slot sum (``slot_sum``), which is exact only where their
+    cotangent rows are zero."""
+
+    @staticmethod
+    def forward(ctx, mesh, slots, uids, live, *tables):
+        dtype = tables[0].dtype
+        shard_rows = tables[0].shape[0]
+        u = uids.long()
+        safe = torch.clamp(u, 0, shard_rows - 1)
+        rows = [t.index_select(0, safe).to(dtype) for t in tables]
+        mine = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+        zero = torch.zeros((), dtype=dtype, device=mine.device)
+        mine = torch.where((u < shard_rows)[:, None], mine, zero)
+        # the one communication: every rank gets every shard's unique rows
+        r_all = mesh_lib.all_gather(mine, None, "dedup_rows")
+        ctx.mesh = mesh
+        ctx.meta = (shard_rows, dtype, [(t.shape[1], t.dtype)
+                                        for t in tables])
+        ctx.save_for_backward(slots, u, live)
+        return r_all.index_select(0, slots.long())
+
+    @staticmethod
+    def backward(ctx, ct):
+        slots, u, live = ctx.saved_tensors
+        mesh = ctx.mesh
+        shard_rows, dtype, cols = ctx.meta
+        cap = u.shape[0]
+        g = ct.float()
+        if mesh.model_idx != 0:
+            g = torch.zeros_like(g)
+        g_all = slot_sum(slots, g, mesh.world * cap, live)
+        g_mine = mesh_lib.reduce_scatter(g_all, None, "dedup_rows_bwd")
+        # sentinels all land in the extra row, which is cut off
+        d = torch.zeros((shard_rows + 1, g_mine.shape[1]), dtype=dtype,
+                        device=g_mine.device)
+        d.index_copy_(0, torch.clamp(u, 0, shard_rows), g_mine.to(dtype))
+        grads, at = [], 0
+        for width, tdtype in cols:
+            grads.append(d[:shard_rows, at:at + width].to(tdtype))
+            at += width
+        return (None, None, None, None) + tuple(grads)
+
+
+def dedup_sharded_gather(tables: Sequence[torch.Tensor],
+                         slots: torch.Tensor, uids: torch.Tensor, mesh,
+                         live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N_local, sum D] rows of the row-sharded ``tables`` at the dedup
+    plan's entries (exchange.py:260-268 there): ``index_select`` on the
+    whole tables at the ids the plan was built from.  ``live``: the
+    entries whose cotangent may be nonzero; the backward drops the others
+    (``DedupGather``)."""
+    return DedupGather.apply(mesh, slots.reshape(-1), uids.reshape(-1),
+                             live.reshape(-1) if live is not None else None,
+                             *tables)
 
 
 def gather_rows_nograd(table: torch.Tensor, ids: torch.Tensor,

@@ -97,8 +97,10 @@ def build_training_plan(config: Config, train_conf: Dict[str, Any],
     mesh, and only where some host sees the global batch's id stream (one
     process, or ``global_batch_input``: the input service); the fused
     sparse optimizer where its plans are; ``pack_budget: auto`` resolved
-    from the train data.  ``sharded_lookup: dedup`` is not ported
-    (ROADMAP.md Queue 1)."""
+    from the train data.  ``sharded_lookup: dedup`` on a mesh fed with
+    the global batch gives the big groups the dedup exchange's unique-id
+    plans (``shard_kind="dedup"``) in place of the kernel plans, and keeps
+    the fused optimizer's per-shard compact plans."""
     from wide_deep_tpu_torch.features.analyze import resolve_pack_budget
     budget = train_conf.get("pack_budget")
     if str(budget).lower() == "auto":
@@ -106,15 +108,15 @@ def build_training_plan(config: Config, train_conf: Dict[str, Any],
                                      raw=budget)
     single_host_input = n_procs == 1 or global_batch_input
     lookup = config.distribution.get("sharded_lookup") or "auto"
-    if n_dev > 1 and lookup == "dedup":
-        raise NotImplementedError(
-            "sharded_lookup: dedup (the dedup exchange) is not ported yet "
-            "(ROADMAP.md Queue 1); use explicit or auto")
-    explicit_lookup = n_dev > 1 and lookup in ("explicit", "auto")
+    dedup_lookup = n_dev > 1 and lookup == "dedup" and single_host_input
+    explicit_lookup = n_dev > 1 and (
+        lookup in ("explicit", "auto") or dedup_lookup)
     kernels = str(train_conf.get("scatter_mode") or "pallas") == "pallas"
     pallas_scatter = kernels and (
-        n_dev == 1 or (explicit_lookup and single_host_input))
-    scatter_shards = n_dev if n_dev > 1 and pallas_scatter else 1
+        n_dev == 1
+        or (explicit_lookup and not dedup_lookup and single_host_input))
+    scatter_shards = (n_dev if n_dev > 1 and (pallas_scatter or dedup_lookup)
+                      else 1)
     sparse_opt = (bool(train_conf.get("sparse_optimizer")) and kernels
                   and (n_dev == 1 or (scatter_shards == n_dev
                                       and single_host_input)))
@@ -124,6 +126,7 @@ def build_training_plan(config: Config, train_conf: Dict[str, Any],
         pack_budget=budget if budget not in (None, "") else None,
         pallas_scatter=pallas_scatter, scatter_shards=scatter_shards,
         shard_threshold=train_conf.get("shard_threshold"),
+        shard_kind="dedup" if dedup_lookup else "scatter",
         sparse_opt=sparse_opt)
 
 
