@@ -389,26 +389,14 @@ def test_proximal_adagrad_matches_jax(dtype):
 
 
 # ----------------------------------------------------------------- utils
-def test_utils_match_jax(caplog):
-    """timer / elapse_time as the JAX package's utils; column_to_dtype
-    gives the JAX package's map for the same conf."""
-    import logging
-    import time
-
+def test_utils_match_jax():
+    """column_to_dtype gives the JAX package's map for the same conf."""
     from paths import REPO
     from wide_deep_tpu.config import Config as JConfig
     from wide_deep_tpu.utils import column_to_dtype as jcol
     from wide_deep_tpu_torch.config import Config
-    from wide_deep_tpu_torch.utils import column_to_dtype, elapse_time, timer
+    from wide_deep_tpu_torch.utils import column_to_dtype
 
-    @timer("op done")
-    def op():
-        return 42
-
-    with caplog.at_level(logging.INFO, "wide_deep_tpu_torch"):
-        assert op() == 42
-    assert any("op done elapsed" in r.message for r in caplog.records)
-    assert elapse_time(time.time() - 2.0) >= 2.0
     conf = os.path.join(REPO, "conf")
     got = column_to_dtype(Config(conf))
     assert got == jcol(JConfig(conf)) and len(got) == 61
@@ -416,7 +404,9 @@ def test_utils_match_jax(caplog):
 
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
-    """``--profile_dir``: a torch.profiler Chrome trace of the training."""
+    """``--profile_dir``: a torch.profiler Chrome trace of the training,
+    which holds the program's step spans, and beside it the spans
+    themselves and the counters (``tracing.snapshot``)."""
     import json
 
     from wide_deep_tpu_torch.tools import train
@@ -429,7 +419,19 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
                                  "--train_epochs", "1", "--dynamic_train",
                                  "0"])
     assert trainer.global_step == 4
-    (name,) = os.listdir(prof)
-    with open(prof / name) as f:
+    pid = os.getpid()
+    assert sorted(os.listdir(prof)) == [f"spans_{pid}.json",
+                                        f"trace_{pid}.json"]
+    with open(prof / f"trace_{pid}.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in str(e.get("name")) for e in events)
+    steps = [e for e in events if e.get("name") == "train.step"
+             and e.get("cat") == "user_annotation"]
+    assert len(steps) == 4
+    with open(prof / f"spans_{pid}.json") as f:
+        snap = json.load(f)
+    forward = snap["spans"]["train.forward"]
+    assert len(forward) == 4
+    assert all(o["parent"] == "train.step" and o["host_s"] > 0
+               for o in forward)
+    assert "kernels.scatter.range_launches" in snap["counters"]

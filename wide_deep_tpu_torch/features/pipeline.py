@@ -25,6 +25,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from wide_deep_tpu_torch import tracing
 from wide_deep_tpu_torch.features import hashing
 from wide_deep_tpu_torch.features.plan import FeaturePlan
 
@@ -573,12 +574,14 @@ def default_transformer(plan: FeaturePlan, n_classes: int = 2,
 class PrefetchIterator:
     """Background-thread prefetch over a batch iterable (the tf.data
     ``prefetch`` analog): host-side parsing/packing overlaps the device
-    step instead of serializing with it."""
+    step instead of serializing with it.  The consumer's wait for the
+    queue is the span ``input.wait.<stage>`` (tracing.py)."""
 
-    def __init__(self, iterable, depth: int = 2):
+    def __init__(self, iterable, depth: int = 2, stage: str = "parsed"):
         import queue
         import threading
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+        self._wait_span = f"input.wait.{stage}"
         self._done = object()
         self._error: Optional[BaseException] = None
 
@@ -598,7 +601,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with tracing.span(self._wait_span):
+            item = self._queue.get()
         if item is self._done:
             # re-arm the sentinel so further next() calls keep raising
             # StopIteration instead of blocking on the drained queue
@@ -618,4 +622,5 @@ class DevicePrefetchIterator(PrefetchIterator):
     raised in the consumer."""
 
     def __init__(self, iterable, to_device, depth: int = 2):
-        super().__init__((to_device(b) for b in iterable), depth=depth)
+        super().__init__((to_device(b) for b in iterable), depth=depth,
+                         stage="device")

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from wide_deep_tpu_torch import metrics as metrics_lib
+from wide_deep_tpu_torch import tracing
 from wide_deep_tpu_torch.config import Config
 from wide_deep_tpu_torch.features.pipeline import (CsvDataset,
                                                    DevicePrefetchIterator,
@@ -197,16 +198,20 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
     ``stream``, and viewed back per key.  The pinned buffer comes from
     PyTorch's caching host allocator, which records the copy on it and
     hands its memory out again only once the copy is done, so a caller may
-    pack the next batch at once."""
+    pack the next batch at once.  Spans ``input.h2d`` (pack and copy) and
+    ``input.h2d.copy`` (the copy, on ``stream``); counter
+    ``input.h2d_bytes``."""
     offsets, n = pack_layout(batch)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), tracing.span("input.h2d"):
         host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         pack_into(host.numpy(), batch, offsets)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), tracing.span("input.h2d.copy",
+                                                     device):
             buf = torch.empty(n, dtype=torch.uint8, device=device)
             buf.copy_(host, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(stream)
+        tracing.count("input.h2d_bytes", n)
     return DeviceBatch(unpack(buf, batch, offsets), buf, ready)
 
 
@@ -449,17 +454,19 @@ class Trainer:
         """One step on a host batch (numpy arrays) or on one already on the
         device (``_to_device``'s); returns the loss (on device).
         ``with_summaries`` also computes the per-layer activation stats
-        into ``summary_stats``."""
-        self.ensure_initialized()
-        out = train_step(
-            self.model, self.tx, self.params, self.mstate, self.opt_state,
-            self._device_batch(batch), self.sparse_tables, rng=self._gen,
-            with_summaries=with_summaries)
-        self.mstate, loss = out[0], out[1]
-        if with_summaries:
-            self.summary_stats = out[2]
-        self.global_step += 1
-        self.losses.append(loss)
+        into ``summary_stats``.  The call is the span ``train.step``."""
+        with tracing.span("train.step"):
+            self.ensure_initialized()
+            out = train_step(
+                self.model, self.tx, self.params, self.mstate,
+                self.opt_state, self._device_batch(batch),
+                self.sparse_tables, rng=self._gen,
+                with_summaries=with_summaries)
+            self.mstate, loss = out[0], out[1]
+            if with_summaries:
+                self.summary_stats = out[2]
+            self.global_step += 1
+            self.losses.append(loss)
         return loss
 
     def _image_path(self, mode: str, data_path: str) -> Optional[str]:

@@ -28,6 +28,12 @@ applies the update the previous step left in ``opt_state
 ["sparse_pending"]`` and leaves its own there.  The forward sees the same
 tables either way; ``flush_step`` applies what is pending, and must run
 before an evaluation, a checkpoint or an export reads the tables.
+
+The step's phases are spans (tracing.py), each timed on the batch's
+device: ``train.forward``, ``train.backward`` (the mesh's gradient
+all-reduce included) and ``train.update`` with its children
+``train.update.dense`` and ``train.update.sparse`` (``defer_sparse``'s
+pending update included, at the step's start).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from wide_deep_tpu_torch import metrics as metrics_lib
+from wide_deep_tpu_torch import tracing
 from wide_deep_tpu_torch.models.joint import WideDeep
 from wide_deep_tpu_torch.optim import JointOptimizer, tree_get, tree_items
 from wide_deep_tpu_torch.optim import sparse as sparse_lib
@@ -81,8 +88,11 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         if (t.fused or defer_sparse) and name not in compact:
             raise ValueError(f"{name}: fused tables need the batch's "
                              f"compact plan (sopt_*_{t.path[-1]})")
+    dev = batch["label"].device
     if defer_sparse:
-        _apply_pending(sparse_tables, params, opt_state)
+        with tracing.span("train.update", dev), \
+                tracing.span("train.update.sparse", dev):
+            _apply_pending(sparse_tables, params, opt_state)
     # unfused tables without a plan take their dense gradient
     sink_paths = {t.path for t in compact.values()}
     leaves = [(p, t) for p, t in tree_items(params) if p not in sink_paths]
@@ -90,22 +100,39 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         t.requires_grad_(True)
     sinks: Dict[str, Optional[torch.Tensor]] = {
         t.path[-1]: None for t in compact.values()}
-    loss, aux = model.loss_fn(
-        params, mstate, batch, True, rng, sinks=sinks if sinks else None,
-        collect_summaries=with_summaries)
+    with tracing.span("train.forward", dev):
+        loss, aux = model.loss_fn(
+            params, mstate, batch, True, rng,
+            sinks=sinks if sinks else None,
+            collect_summaries=with_summaries)
     new_mstate = aux[0]
     sink_items = sorted(sinks.items())
-    grads = torch.autograd.grad(
-        loss, [t for _, t in leaves] + [s for _, s in sink_items],
-        allow_unused=True)
-    dense_grads = {p: (g if g is not None else torch.zeros_like(t))
-                   for (p, t), g in zip(leaves, grads)}
     mesh = model.mesh
-    if mesh is not None:
-        _sum_replicated_grads(dense_grads, model.sharded_paths, mesh)
-        loss = _global_loss(loss.detach(), mesh)
+    with tracing.span("train.backward", dev):
+        grads = torch.autograd.grad(
+            loss, [t for _, t in leaves] + [s for _, s in sink_items],
+            allow_unused=True)
+        dense_grads = {p: (g if g is not None else torch.zeros_like(t))
+                       for (p, t), g in zip(leaves, grads)}
+        if mesh is not None:
+            _sum_replicated_grads(dense_grads, model.sharded_paths, mesh)
+            loss = _global_loss(loss.detach(), mesh)
     sink_grads = dict(zip((k for k, _ in sink_items), grads[len(leaves):]))
-    tx.update_(params, dense_grads, opt_state["dense"])
+    with tracing.span("train.update", dev):
+        with tracing.span("train.update.dense", dev):
+            tx.update_(params, dense_grads, opt_state["dense"])
+        with tracing.span("train.update.sparse", dev):
+            _update_tables(sparse_tables, compact, params, opt_state, batch,
+                           dense_grads, sink_grads, mesh, defer_sparse)
+    if with_summaries:
+        return new_mstate, loss.detach(), aux[3]
+    return new_mstate, loss.detach()
+
+
+def _update_tables(sparse_tables, compact, params, opt_state, batch,
+                   dense_grads, sink_grads, mesh, defer_sparse) -> None:
+    """The touched-rows update of each sparse table, in place; under
+    ``defer_sparse``, this step's update left pending instead."""
     if defer_sparse:
         # this step's update waits for the next step; its plan is cloned,
         # since the batch's device buffer is handed out again
@@ -114,7 +141,8 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
                    **{k: batch[f"sopt_{k}_{t.path[-1]}"].clone()
                       for k in PLAN_KEYS}}
             for name, t in sparse_tables.items()}
-    for name, t in ({} if defer_sparse else sparse_tables).items():
+        return
+    for name, t in sparse_tables.items():
         key = t.path[-1]
         param = tree_get(params, t.path)
         st = opt_state["sparse"][name]
@@ -134,9 +162,6 @@ def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
         else:
             sparse_lib.apply_sparse_update(t, param, dense_grads[t.path],
                                            batch[t.ids_key], st)
-    if with_summaries:
-        return new_mstate, loss.detach(), aux[3]
-    return new_mstate, loss.detach()
 
 
 def _sum_replicated_grads(grads: Dict[Any, torch.Tensor],
