@@ -27,7 +27,11 @@ each on stdout:
    window (the warm window re-reads inputs that fit in the 50 MB L2); K1
    and K2 are each called twice and must give the
    same bits (K2's line gives the sub-window the kernel launches with, which
-   must be the one its wrapper assumes);
+   must be the one its wrapper assumes); then K1 at the FM factors' gather
+   backward at the global batch of 4 x 25,600 rows (``k1_fm_row``: the FM
+   plan's 74-slot wide pool with each row's last 24 slots the padding, a
+   run of over 2.45M entries on row 0), its chunk pass, carry levels and
+   memset apart in the device times;
 2. the port's ``Trainer`` on the production config (conf/, batch 25600,
    pack_budget 3): 2 steps through ``train_file`` on a generated TSV (the
    native loader's fast path, then one host-to-device copy a batch, both in
@@ -106,9 +110,8 @@ each on stdout:
       a generated TSV run twice from one state, bit for bit (losses,
       params, BN and optimizer state); step 0's update of every leaf
       (FTRL on the wide table and ``v``, Adagrad on the rest, the fused d32
-      rows) replayed on the host: 0 ulp apart (``recorded_update``); K1 at
-      the ``v`` site against its plain version, with its and the library
-      call's device time, warm and with L2 flushed; a step's device time
+      rows) replayed on the host: 0 ulp apart (``recorded_update``; K1 at
+      the ``v`` site is phase 1's ``k1_fm_row``); a step's device time
       from a profiler window and the FTRL sweep over ``v`` alone;
    b. ``OPTIMIZER_CONFIGS``: conf/ as shipped (FTRL on the wide table and
       the fold columns, Adagrad on the rest, the fused Adagrad d32 rows),
@@ -442,6 +445,59 @@ def timed_row(name, source, replaces, max_err, tol_text, ok, fn, plain,
     return row
 
 
+FM_ROWS = 4 * BATCH      # k1_fm_row's rows: the reference cluster's global
+                         # batch, 4 workers x 25,600
+FM_PADDING = 24          # padded slots of a parsed row's 74 in the FM pool
+
+
+def k1_fm_row(device, gen):
+    """K1 at the FM factors' gather backward (``linear_fm_factors: 8``) at
+    FM_ROWS rows: the FM plan's wide pool from ``testing.synthetic_batch``,
+    which fills every slot, with each row's last FM_PADDING slots set to
+    the padding id 0, as the generated TSV rows leave them once parsed
+    (32.4% of the pool), sorted stably; float32 gradients of width 8
+    into [wide_dim, 8] float32, held to its plain version and timed as a
+    kernels row (``check_scatter``).  -> the row."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch import testing
+    from wide_deep_tpu_torch.ops import scatter
+    from wide_deep_tpu_torch.training.loop import build_training_plan
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fm_")
+    try:
+        config = conf_copy(tmp, "conf_fm", linear_fm_factors=FM_FACTORS)
+        plan = build_training_plan(
+            config, dict(config.train, batch_size=FM_ROWS, pack_budget=3),
+            "wide_deep")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wide = testing.synthetic_batch(plan, FM_ROWS, np.random.default_rng(7)
+                                   )["wide_ids"]
+    wide[:, -FM_PADDING:] = 0
+    wide = wide.reshape(-1)
+    order = np.argsort(wide, kind="stable").astype(np.int32)
+    ids = torch.from_numpy(wide[order]).to(device)
+    perm = torch.from_numpy(order).to(device)
+    g = torch.randn((wide.size, FM_FACTORS), generator=gen, device=device)
+    rows = plan.wide_dim
+    log(f"phase 1: K1 v (FM): {wide.size} ids ({FM_ROWS} rows x "
+        f"{plan.wide_packed_len} slots), a run of {int((wide == 0).sum())} on "
+        f"row 0; {scatter.range_carry_levels(wide.size)} carry levels")
+    return check_scatter(
+        "K1 range_scatter_add v (FM)",
+        lambda: scatter.sorted_stream_sum(ids, perm, g, rows, torch.float32),
+        lambda: scatter.range_scatter_add_plain(ids, perm, g, rows,
+                                                torch.float32),
+        lambda: torch.zeros((rows, FM_FACTORS), device=device).index_add_(
+            0, ids.long(), g[perm.long()]),
+        torch.float32, wide.size, FM_FACTORS, rows, 4, 0,
+        "wide_deep_tpu_torch/csrc/range_scatter.cu",
+        "wide_deep_tpu/ops/scatter.py:184", memset=True,
+        magnitudes=lambda: scatter.range_scatter_add_plain(
+            ids, perm, g.abs(), rows, torch.float32))
+
+
 def phase_kernels(plan, batch, device):
     import numpy as np
     import torch
@@ -554,6 +610,9 @@ def phase_kernels(plan, batch, device):
                             device=device).index_add_(0, lib_ids, lib_g),
         torch.bfloat16, n_live, 17, g16.rows, 2, 0, src, rep, memset=True))
     del ids, perm, tiles, g, lib_ids, lib_g
+    # logged, not a row of the kernels line: its site launches in phase 8a
+    k1_fm_row(device, gen)
+    torch.cuda.empty_cache()
 
     # K3, then P2, on the production fused table, sentinel uids included
     g32 = groups[32]
@@ -1873,9 +1932,7 @@ def phase_fm(card, tmp):
     from torch.profiler import ProfilerActivity, profile
 
     from wide_deep_tpu_torch import testing
-    from wide_deep_tpu_torch.ops import scatter
     from wide_deep_tpu_torch.optim import leaf_update_, slot_inits
-    from wide_deep_tpu_torch.tools import median_ms
     from wide_deep_tpu_torch.training.loop import Trainer
 
     t0 = time.time()
@@ -1939,63 +1996,9 @@ def phase_fm(card, tmp):
         f"{la} both times, params, BN and optimizer state bit for bit; "
         f"launches per step {[nonzero(d) for d in steps]}")
 
-    # the v site's K1 against its plain version, at this batch's shape
-    batch = testing.synthetic_batch(tr.plan, BATCH,
-                                    np.random.default_rng(43))
-    ids = torch.from_numpy(batch["wide_ids"].reshape(-1)).to(
-        tr.device).long()
-    gen = torch.Generator(device=tr.device).manual_seed(5)
-    ct = torch.randn((ids.numel(), FM_FACTORS), generator=gen,
-                     device=tr.device)
-    perm = torch.argsort(ids, stable=True)
-    sids, iperm = ids[perm].int().contiguous(), perm.int().contiguous()
-    rows = tr.plan.wide_dim
-
-    def kernel():
-        return scatter.sorted_stream_sum(sids, iperm, ct, rows,
-                                         torch.float32)
-
-    def plain():
-        return scatter.range_scatter_add_plain(sids, iperm, ct, rows,
-                                               torch.float32)
-    got, again, want = kernel(), kernel(), plain()
-    mag = scatter.range_scatter_add_plain(sids, iperm, ct.abs(), rows,
-                                          torch.float32)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    ok = bool((err <= 1e-6 * mag + 1e-6).all())
-    if not ok or not torch.equal(bits(got), bits(again)):
-        raise SystemExit(f"phase 8a: K1 at the v site disagrees with its "
-                         f"plain version (max err {float(err.max()):.3g}) "
-                         f"or with itself")
-    def library():
-        return torch.zeros((rows, FM_FACTORS), device=ct.device).index_add_(
-            0, ids, ct)
-    k_ms = median_ms(kernel, 20, got.device)
-    p_ms = median_ms(plain, 20, got.device)
-    l_ms = median_ms(library, 20, got.device)
-    n = ids.numel()
-    stream_bytes = n * (4 + 4 + FM_FACTORS * 4)
-    out_bytes = rows * FM_FACTORS * 4
-    b_ms, b_by = bound_ms(stream_bytes + out_bytes, n * FM_FACTORS)
-    b_memset = bound_ms(stream_bytes + 2 * out_bytes, 0)[0]
-    dev = {key: sum(device_ms(fn, flushed=flushed)[0].values())
-           for key, fn, flushed in (("kernel", kernel, False),
-                                    ("kernel flushed", kernel, True),
-                                    ("library", library, False),
-                                    ("library flushed", library, True))}
-    log(f"phase 8a: K1 at the v site ({n} ids -> [{rows}, {FM_FACTORS}] "
-        f"float32): max_abs_err {float(err.max()):.3g} (<= 1e-6 of the "
-        f"row's sum of |g| + 1e-6) ok, the same bits twice; kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (zeros + index_add_) "
-        f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_memset:.4f} with "
-        f"the memset); on the device: kernel {dev['kernel']:.4f} ms, "
-        f"library {dev['library']:.4f} ms; L2 flushed before each call: "
-        f"kernel {dev['kernel flushed']:.4f} ms, library "
-        f"{dev['library flushed']:.4f} ms")
-    del got, again, want, mag, ct, ids, perm, sids, iperm
-
     # device time of a step, and of the FTRL sweep over v alone
+    gen = torch.Generator(device=tr.device).manual_seed(5)
+    rows = tr.plan.wide_dim
     batches = [tr._to_device(testing.synthetic_batch(
         tr.plan, BATCH, np.random.default_rng(44 + i))) for i in range(3)]
     torch.cuda.synchronize()

@@ -199,11 +199,67 @@ def test_cuda_range_kernel_takes_every_width(cuda_device, g_dtype,
 
 @pytest.mark.cuda
 def test_cuda_range_scratch_matches_the_kernel(cuda_device):
-    """The wrapper sizes K1's scratch as the kernel counts it."""
-    for n in (0, 1, 31, 32, 33, 25600, 1024000):
+    """The wrapper sizes K1's scratch, and counts its carry levels, as the
+    kernel does."""
+    for n in (0, 1, 31, 32, 33, 1024, 1025, 25600, 1024000, 7577600):
+        assert tsc.kernel_range_carry_levels(n) == \
+            tsc.range_carry_levels(n), n
         for d in (1, 5, 9, 32, 33, 64):
             assert tsc.kernel_range_scratch_floats(n, d) == \
                 tsc.range_scratch_floats(n, d), (n, d)
+
+
+def _run_sums(ids, rows_of):
+    """The runs of the sorted ``ids`` -> (each run's id, its float64 sum
+    of ``rows_of`` [n, d])."""
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    return ids[starts], np.add.reduceat(rows_of, starts, axis=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(1, torch.float32), (8, torch.float32),
+                                     (9, torch.bfloat16)])
+def test_cuda_range_kernel_long_padding_run(cuda_device, d, dtype):
+    """K1 on a stream shaped like the FM factors' gather backward at a
+    global batch of 102,400 rows: 7,577,600 entries, the pool's padding
+    one run of 2,457,600 on row 0 (76,800 chunks), then zipf ids whose hot
+    rows run over thousands of chunks; g and out in ``dtype``.  Against the
+    plain version and the float64 sum, the same bits twice, and each call
+    adds the host's carry levels (5) to ``range_carry_launches``.  The
+    entries have mean 0 in float32 and 0.5 in bfloat16, where each
+    tolerance holds for the plain version's float32 atomics over 2.4M
+    adds: a biased run's running sum grows, and its round-off with it,
+    beyond 1e-6 of the magnitudes; an unbiased hot row's sum can cancel to
+    near zero, where two orders of the adds round to bf16 values many ulps
+    apart."""
+    rng = np.random.default_rng(19)
+    n, hot, rows = 7577600, 2457600, 200000
+    ids = np.sort(np.concatenate([np.zeros(hot, np.int64),
+                                  rng.zipf(1.3, n - hot) % rows]))
+    ids = ids.astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    mean = 0.5 if dtype == torch.bfloat16 else 0.0
+    g = torch.from_numpy(rng.normal(mean, 1.0, (n, d)).astype(np.float32)
+                         ).to(dtype)
+    g64 = g.double().numpy()[perm]
+    ref = np.zeros((rows, d))
+    abs_sum = np.zeros((rows, d))
+    at, sums = _run_sums(ids, g64)
+    ref[at] = sums
+    abs_sum[at] = _run_sums(ids, np.abs(g64))[1]
+    ids_t, perm_t = (torch.from_numpy(x).to(cuda_device) for x in (ids, perm))
+    g = g.to(cuda_device)
+    levels = tsc.range_carry_levels(n)
+    assert levels == 5
+    before = tsc.range_carry_launches
+    out = tsc.sorted_stream_sum(ids_t, perm_t, g, rows, dtype)
+    again = tsc.sorted_stream_sum(ids_t, perm_t, g, rows, dtype)
+    want = tsc.range_scatter_add_plain(ids_t, perm_t, g, rows, dtype)
+    torch.cuda.synchronize()
+    assert tsc.range_carry_launches == before + 2 * levels
+    assert out.dtype == dtype and out.shape == (rows, d)
+    assert torch.equal(_bits(out), _bits(again))
+    _check_k1(out, want, ref, abs_sum)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,9 @@
 The CUDA kernels against their plain versions: tests/test_torch_cuda.py.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -292,13 +295,35 @@ def test_range_wrapper_rejects_bad_inputs(bad):
 
 
 @pytest.mark.parametrize("n,d,floats", [
-    (0, 9, 0), (1, 9, 20), (32, 9, 20), (33, 9, 40),
-    (25600, 32, 800 * 66), (1024000, 9, 32000 * 20)])
+    (0, 9, 0), (1, 9, 20), (32, 9, 20), (33, 9, (2 + 1) * 20),
+    (25600, 32, (800 + 50 + 4 + 1) * 66),
+    (1024000, 9, (32000 + 2000 + 125 + 8 + 1) * 20)])
 def test_range_scratch_counts_chunks(n, d, floats):
-    """K1's scratch: per chunk of 32 stream positions, two ints of meta
-    and two float32 partial rows (tests/test_torch_cuda.py holds it against
-    the kernel's own count)."""
+    """K1's scratch: per chunk of the chunk pass (32 stream positions) and
+    of each carry level (32 slots), two int keys and two float32 partial
+    rows (tests/test_torch_cuda.py holds it against the kernel's own
+    count)."""
     assert tsc.range_scratch_floats(n, d) == floats
+
+
+@pytest.mark.parametrize("n,chunks", [
+    (0, []), (1, [1]), (32, [1]), (33, [2, 1]), (32 ** 2, [32, 2, 1]),
+    (32 ** 2 + 1, [33, 3, 1]),
+    (7577600, [236800, 14800, 925, 58, 4, 1])])
+def test_range_carry_levels_at_the_edges(n, chunks):
+    """K1's passes over n stream positions: the chunk pass, then a carry
+    level over the pass before's 2 slots a chunk while that pass had more
+    than one chunk.  The host's level count and scratch follow from n and
+    the kernel's chunk, which is the source's own (tests/test_torch_cuda.py
+    holds both counts against the kernel's)."""
+    src = os.path.join(os.path.dirname(tsc.__file__), os.pardir, "csrc",
+                       "range_scatter.cu")
+    with open(src) as f:
+        k_chunk = re.search(r"constexpr int kChunk = (\d+);", f.read())
+    assert int(k_chunk.group(1)) == tsc.RANGE_CHUNK == 32
+    assert tsc.range_carry_levels(n) == max(len(chunks) - 1, 0)
+    for d in (1, 8, 9):
+        assert tsc.range_scratch_floats(n, d) == sum(chunks) * (2 + 2 * d)
 
 
 @pytest.mark.parametrize("bad", ["width", "dtype", "uids"])

@@ -65,6 +65,7 @@ def test_off_records_nothing(tmp_path, monkeypatch):
     snap = tracing.snapshot()
     assert snap["spans"] == {} and _program_counters(snap) == {}
     assert "kernels.rowdma.rowdma_launches" in snap["counters"]
+    assert "kernels.scatter.range_carry_launches" in snap["counters"]
 
 
 def test_step_spans_under_the_profiler(tmp_path):

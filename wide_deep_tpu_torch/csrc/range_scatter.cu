@@ -35,11 +35,18 @@
 //     output, in its type (no float32 accumulator over the table and no cast
 //     pass);
 //   * a run cut by a chunk edge leaves its float32 partial in a scratch slot
-//     of its chunk (slot 0: the chunk's first run, begun in an earlier
-//     chunk; slot 1: its last run, begun here and going on).  A second
-//     kernel, one warp per chunk, lets the chunk that holds such a run's head
-//     add the later chunks' partials in chunk order and store the row once.
-//     A run over many chunks (a hot row) is the same case;
+//     of its chunk, keyed by its id (slot 0: the chunk's first run, begun
+//     in an earlier chunk; slot 1: its last run, going on into the next; a
+//     chunk that one run passes through keeps its partial in slot 0 and a
+//     zero in slot 1, so the run's slots stay one run); slots of runs that
+//     no edge cuts are keyed -1.  Those 2 slots a chunk, in chunk order, are
+//     a stream of width d whose equal live keys are adjacent again:
+//     range_carry_kernel sums it the same way, one warp per 32 slots, and
+//     leaves the runs it cuts to the next level, each level 16 times
+//     shorter, until one chunk holds the rest.  So a run over C chunks (a
+//     hot row; a pool's padding on row 0) is finished within
+//     1 + log16(C) levels, no warp adds more than 32 partials in order, and
+//     the host knows the levels from n alone (5 for 7,577,600 positions);
 //   * rows that no id touches are zero: the C entry clears the output with
 //     cudaMemsetAsync before the first launch.
 // No atomics anywhere.  What each choice bought on an H100 (a block-wide
@@ -56,18 +63,16 @@ constexpr int kCols = 16;    // most columns a chunk's warp takes (32 bytes
                              // of bfloat16; 8 float32 columns take 32)
 constexpr unsigned kFull = 0xffffffffu;
 
-// meta[b] = (flags, the id of chunk b's last position)
-constexpr int kOwner = 1;    // the last run began here and goes on: slot 1
-constexpr int kThrough = 2;  // the chunk is one run that began earlier and
-                             // goes on: slot 0
-
+// One warp sums chunk b of a stream: the kChunk positions from b * kChunk
+// of ids (live: in [0, rows); equal live ids adjacent), whose rows are
+// g[perm[i]] (perm null: g[i]).  Runs that start and end in the chunk are
+// stored into out; a run cut by an edge leaves its partial in next_vals,
+// keyed in next_ids (2 slots a chunk, see the notes above).
 template <typename T, typename O>
-__global__ void __launch_bounds__(kWarps * 32)
-    range_chunk_kernel(const int* __restrict__ ids,
-                       const int* __restrict__ perm,
-                       const T* __restrict__ g, int n, int rows, int d,
-                       O* __restrict__ out, float* __restrict__ partial,
-                       int2* __restrict__ meta) {
+__device__ __forceinline__ void sum_chunk(
+    const int* __restrict__ ids, const int* __restrict__ perm,
+    const T* __restrict__ g, int n, int rows, int d, O* __restrict__ out,
+    int* __restrict__ next_ids, float* __restrict__ next_vals) {
   __shared__ float s_slab[kWarps][kChunk * (kCols + 1)];  // a warp's [32, nc]
   __shared__ int s_tail_lane[kWarps][kChunk];  // r-th run tail: lane | where
   __shared__ int s_tail_id[kWarps][kChunk];    // ... and its id
@@ -82,7 +87,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   int pr = 0;
   if (lane < m) {
     id = ids[s + lane];
-    pr = perm[s + lane];
+    pr = perm ? perm[s + lane] : s + lane;
   }
   const int before = s > 0 ? ids[s - 1] : -1;
   const int after = kChunk < n - s ? ids[s + kChunk] : -1;
@@ -97,14 +102,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   // the run ending here began in an earlier chunk / goes on into the next
   const bool cut_lo = live && id == first && before == id;
   const bool cut_hi = live && lane == m - 1 && next == id;
+  // the chunk's first run began earlier (slot 0); its last run goes on
+  // (slot 1); one run both (through: its partial in slot 0, zero in 1)
+  const bool lo = (unsigned)first < (unsigned)rows && before == first;
+  const bool hi = (unsigned)last < (unsigned)rows && m == kChunk &&
+                  after == last;
+  const bool through = lo && hi && first == last;
   if (lane == 0 && blockIdx.y == 0) {
-    const bool lo = (unsigned)first < (unsigned)rows && before == first;
-    const bool hi = (unsigned)last < (unsigned)rows && m == kChunk &&
-                    after == last;
-    const bool single = first == last;
-    meta[b] = make_int2((hi && !(single && lo) ? kOwner : 0) |
-                            (hi && single && lo ? kThrough : 0),
-                        last);
+    next_ids[2 * b] = lo ? first : -1;
+    next_ids[2 * b + 1] = hi ? last : -1;
   }
   // segments start at run heads and at lane 0
   const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != id);
@@ -122,6 +128,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   // [32, nc] slab is (q, c) = divmod(k, nc), stepped without dividing
   const int c0 = (int)((int64_t)d * blockIdx.y / gridDim.y);
   const int nc = (int)((int64_t)d * (blockIdx.y + 1) / gridDim.y) - c0;
+  if (through && lane < nc) {
+    next_vals[((int64_t)b * 2 + 1) * d + c0 + lane] = 0.f;
+  }
   const int stride = nc | 1;  // odd: a lane's own slab row is conflict-free
   const int q_step = kChunk / nc;
   const int c_step = kChunk - q_step * nc;
@@ -168,7 +177,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int e = s_tail_lane[warp][r];
       const float x = slab[(e & 0xff) * stride + c];
       if (e >> 8) {  // a cut run: its partial, in slot (e >> 8) - 1
-        partial[((int64_t)b * 2 + (e >> 8) - 1) * d + c0 + c] = x;
+        next_vals[((int64_t)b * 2 + (e >> 8) - 1) * d + c0 + c] = x;
       } else {
         wdt::store_f(out, (int64_t)s_tail_id[warp][r] * d + c0 + c, x);
       }
@@ -182,54 +191,64 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// One warp per chunk.  The chunk that holds the head of a run cut at its
-// end (kOwner) sums its partial and those of the chunks the run reaches,
-// in chunk order, and stores the row.
-template <typename O>
+// The stream's chunks: one warp each.
+template <typename T, typename O>
 __global__ void __launch_bounds__(kWarps * 32)
-    range_carry_kernel(const float* __restrict__ partial,
-                       const int2* __restrict__ meta, int n_chunks, int d,
-                       O* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= n_chunks) return;
-  const int2 mb = meta[b];
-  if (!(mb.x & kOwner)) return;
-  // the run ends in the first chunk after b that it does not pass through;
-  // the stream's last chunk never passes a run on
-  int end = b + 1;
-  for (int base = b + 1;; base += 32) {
-    const int k = base + lane;
-    const bool through = k < n_chunks && (meta[k].x & kThrough);
-    const unsigned stop = __ballot_sync(kFull, !through);
-    if (stop) {
-      end = base + __ffs(stop) - 1;
-      break;
-    }
-  }
-  O* dst = out + (int64_t)mb.y * d;
-  for (int c = lane; c < d; c += 32) {
-    float sum = partial[((int64_t)b * 2 + 1) * d + c];
-    for (int k = b + 1; k <= end; ++k) sum += partial[(int64_t)k * 2 * d + c];
-    wdt::store_f(dst, c, sum);
-  }
+    range_chunk_kernel(const int* __restrict__ ids,
+                       const int* __restrict__ perm,
+                       const T* __restrict__ g, int n, int rows, int d,
+                       O* __restrict__ out, int* __restrict__ next_ids,
+                       float* __restrict__ next_vals) {
+  sum_chunk<T, O>(ids, perm, g, n, rows, d, out, next_ids, next_vals);
 }
 
-int64_t n_chunks_for(int n) { return ((int64_t)n + kChunk - 1) / kChunk; }
+// One carry level: the previous pass's n slots (keys, float32 partials),
+// summed as a stream of their own.
+template <typename O>
+__global__ void __launch_bounds__(kWarps * 32)
+    range_carry_kernel(const int* __restrict__ ids,
+                       const float* __restrict__ vals, int n, int rows,
+                       int d, O* __restrict__ out, int* __restrict__ next_ids,
+                       float* __restrict__ next_vals) {
+  sum_chunk<float, O>(ids, nullptr, vals, n, rows, d, out, next_ids,
+                      next_vals);
+}
+
+int64_t n_chunks_for(int64_t n) { return (n + kChunk - 1) / kChunk; }
+
+// The chunks of the next carry level after a pass of c chunks (2 slots
+// each); the levels run while the pass before had more than one chunk.
+int64_t next_level(int64_t c) { return n_chunks_for(2 * c); }
+
+int blocks_for(int64_t chunks) {
+  return (int)((chunks + kWarps - 1) / kWarps);
+}
 
 template <typename T, typename O>
 void launch(const int* ids, const int* perm, const T* g, int n, int rows,
             int d, O* out, float* scratch, cudaStream_t stream) {
-  const int n_chunks = (int)n_chunks_for(n);
-  const int blocks = (n_chunks + kWarps - 1) / kWarps;
-  int2* meta = reinterpret_cast<int2*>(scratch);
-  float* partial = scratch + 2 * (int64_t)n_chunks;
-  // column groups of one 32-byte sector of a gradient row: nc <= kCols
+  // a pass of c chunks writes 2c keys, then 2c partial rows, into scratch
+  int64_t chunks = n_chunks_for(n);
+  int* next_ids = reinterpret_cast<int*>(scratch);
+  float* next_vals = scratch + 2 * chunks;
+  // column groups of one 32-byte sector of a row: nc <= kCols
   const int groups = (int)(((int64_t)d * sizeof(T) + 31) / 32);
-  range_chunk_kernel<T, O><<<dim3(blocks, groups), kWarps * 32, 0, stream>>>(
-      ids, perm, g, n, rows, d, out, partial, meta);
-  range_carry_kernel<O><<<blocks, kWarps * 32, 0, stream>>>(
-      partial, meta, n_chunks, d, out);
+  range_chunk_kernel<T, O><<<dim3(blocks_for(chunks), groups), kWarps * 32,
+                             0, stream>>>(ids, perm, g, n, rows, d, out,
+                                          next_ids, next_vals);
+  const int carry_groups = (int)(((int64_t)d * sizeof(float) + 31) / 32);
+  while (chunks > 1) {
+    const int* level_ids = next_ids;
+    const float* level_vals = next_vals;
+    const int slots = (int)(2 * chunks);
+    float* level_end = next_vals + 2 * chunks * d;
+    chunks = next_level(chunks);
+    next_ids = reinterpret_cast<int*>(level_end);
+    next_vals = level_end + 2 * chunks;
+    range_carry_kernel<O><<<dim3(blocks_for(chunks), carry_groups),
+                            kWarps * 32, 0, stream>>>(
+        level_ids, level_vals, slots, rows, d, out, next_ids, next_vals);
+  }
 }
 
 template <typename T>
@@ -247,16 +266,32 @@ void launch_out(const int* ids, const int* perm, const T* g, int n, int rows,
 
 }  // namespace
 
+// The carry levels (range_carry_kernel launches) wdt_range_scatter_add
+// makes for n stream positions.
+extern "C" int wdt_range_carry_levels(int n) {
+  int levels = 0;
+  for (int64_t c = n_chunks_for(n); c > 1; c = next_level(c)) ++levels;
+  return levels;
+}
+
 // float32 elements of the scratch wdt_range_scatter_add needs for n stream
-// positions of width d: per chunk, its meta (two ints) and two partial rows.
+// positions of width d: per chunk of the chunk pass and of every carry
+// level, two keys and two partial rows.
 extern "C" int64_t wdt_range_scratch_floats(int n, int d) {
-  return n_chunks_for(n) * (2 + 2 * (int64_t)d);
+  int64_t c = n_chunks_for(n);
+  int64_t chunks = c;
+  while (c > 1) {
+    c = next_level(c);
+    chunks += c;
+  }
+  return chunks * (2 + 2 * (int64_t)d);
 }
 
 // ids, perm: int32 [n], ids sorted; g: [n, d] float32 or bfloat16 (g_bf16);
 // out: [rows, d] float32 or bfloat16 (out_bf16), cleared and then written
 // here; scratch: float32, at least wdt_range_scratch_floats(n, d) of them.
-// One memset and two launches on stream; returns the launch error.
+// One memset, the chunk pass and wdt_range_carry_levels(n) carry levels on
+// stream; returns the launch error.
 extern "C" int wdt_range_scatter_add(const int* ids, const int* perm,
                                      const void* g, int g_bf16, int n,
                                      int rows, int d, void* out, int out_bf16,

@@ -8,8 +8,9 @@ sorts.  Device side:
 * **K1** ``range_scatter_add`` replaces the Pallas range kernel
   (wide_deep_tpu/ops/scatter.py::range_scatter_add): the sum over a range
   plan's sorted stream, as a segmented sum over chunks of RANGE_CHUNK
-  positions, one warp each, whose edge runs are finished by a second
-  pass.  CUDA source: csrc/range_scatter.cu.
+  positions, one warp each, whose edge runs are finished by carry levels
+  that sum the cut runs' partials the same way (``range_carry_levels``).
+  CUDA source: csrc/range_scatter.cu.
 * **K2** ``window_scatter_add`` replaces the Pallas window kernel
   (wide_deep_tpu/ops/scatter.py::window_scatter_add): the same sum over
   fixed write-only windows of MAXR rows, one block per sub-window of
@@ -26,7 +27,8 @@ launch adds one to the module's counter (``range_launches``,
 ``window_launches``; K1 also to ``range_launches_by_shape``, keyed by its
 output's (rows, D), which tells its call sites apart in every
 configuration; ``range_launches_by_width()`` sums it by D, which tells the
-production step's sites apart).  A window plan whose
+production step's sites apart; ``range_carry_launches`` counts K1's carry
+levels).  A window plan whose
 ok flag is 0 (a window over its cap) is summed by K1 over the plan's sorted
 stream: ``window_ok0_launches`` counts those launches apart, and they count
 as K1's too.
@@ -58,6 +60,7 @@ WINDOW_SLAB_BYTES = 32 * 1024      # K2's shared-memory slab per block
 WINDOW_MIN_SUB_ROWS = 16           # K2's narrowest sub-window
 
 range_launches = 0         # K1 kernel launches
+range_carry_launches = 0   # K1's carry-level launches (range_carry_levels)
 range_launches_by_shape: Dict[Tuple[int, int], int] = {}  # by (rows, D)
 window_launches = 0        # K2 kernel launches
 window_ok0_launches = 0    # K1 launches of apply_window_plan's ok=0 branch
@@ -605,11 +608,29 @@ def range_scatter_add_plain(ids_sorted, perm, g_flat, rows, out_dtype=None):
 window_scatter_add_plain = range_scatter_add_plain  # K2: the same function
 
 
+def _range_pass_chunks(n: int):
+    """The chunks of K1's passes over ``n`` stream positions: the chunk
+    pass's (RANGE_CHUNK positions each), then each carry level's, over the
+    2 slots a chunk of the pass before, while that had more than one."""
+    c = -(-n // RANGE_CHUNK)
+    out = [c] if c else []
+    while c > 1:
+        c = -(-2 * c // RANGE_CHUNK)
+        out.append(c)
+    return out
+
+
+def range_carry_levels(n: int) -> int:
+    """K1's carry levels (``range_carry_kernel`` launches) for ``n`` stream
+    positions (``kernel_range_carry_levels`` is the kernel's own)."""
+    return max(len(_range_pass_chunks(n)) - 1, 0)
+
+
 def range_scratch_floats(n: int, d: int) -> int:
     """float32 elements of K1's scratch for ``n`` stream positions of width
-    ``d``: per chunk of RANGE_CHUNK positions, its meta (two ints) and two
-    partial rows (``kernel_range_scratch_floats`` is the kernel's own)."""
-    return -(-n // RANGE_CHUNK) * (2 + 2 * d)
+    ``d``: per chunk of every pass, two keys and two partial rows
+    (``kernel_range_scratch_floats`` is the kernel's own)."""
+    return sum(_range_pass_chunks(n)) * (2 + 2 * d)
 
 
 def _lib_range():
@@ -629,6 +650,15 @@ def kernel_range_scratch_floats(n: int, d: int) -> int:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int64
     return fn(n, d)
+
+
+def kernel_range_carry_levels(n: int) -> int:
+    """The carry levels csrc/range_scatter.cu launches (``range_carry_levels``
+    must agree with it); builds the kernel library."""
+    fn = cuda_build.library("range_scatter").wdt_range_carry_levels
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n)
 
 
 def _lib_window():
@@ -679,8 +709,9 @@ def sorted_stream_sum(ids_sorted: torch.Tensor, perm: torch.Tensor,
     """K1 without a plan's tiles: the same sum over any sorted stream whose
     ids outside [0, rows) drop (a range plan's or a window plan's
     sentinels).  CPU tensors take the plain version; CUDA tensors launch
-    csrc/range_scatter.cu, counted in ``range_launches`` and by width."""
-    global range_launches
+    csrc/range_scatter.cu, counted in ``range_launches`` and by width, its
+    carry levels in ``range_carry_launches``."""
+    global range_launches, range_carry_launches
     _check_stream(ids_sorted, perm, g_flat, rows, out_dtype)
     if g_flat.device.type == "cpu":
         return range_scatter_add_plain(ids_sorted, perm, g_flat, rows,
@@ -698,6 +729,8 @@ def sorted_stream_sum(ids_sorted: torch.Tensor, perm: torch.Tensor,
              scratch.numel(), cuda_build.stream_handle(dev))
     cuda_build.check(err, "range_scatter_add")
     range_launches += 1
+    if rows and d:
+        range_carry_launches += range_carry_levels(n)
     range_launches_by_shape[rows, d] = (
         range_launches_by_shape.get((rows, d), 0) + 1)
     return out

@@ -176,8 +176,8 @@ class _Span:
 def _kernel_counters() -> Dict[str, int]:
     from wide_deep_tpu_torch.ops import rowdma, scatter
     out = {f"kernels.scatter.{k}": getattr(scatter, k)
-           for k in ("range_launches", "window_launches",
-                     "window_ok0_launches")}
+           for k in ("range_launches", "range_carry_launches",
+                     "window_launches", "window_ok0_launches")}
     out.update({f"kernels.scatter.range_launches.d{d}": n
                 for d, n in scatter.range_launches_by_width().items()})
     out.update({f"kernels.rowdma.{k}": getattr(rowdma, k)
