@@ -1,0 +1,13 @@
+"""Device milliseconds a step of the input layer's gathers and pooling:
+the program's span ``train.forward.embed`` (nested in ``train.forward``),
+the compute stream's time between its two markers
+(wide_deep_tpu_torch/tracing.py).
+The median a step over the traced stretch's card-only capture
+(harness/spans.py); None where nothing was recorded or the program has
+no such span (before it was added)."""
+
+from harness import spans
+
+
+def read(run):
+    return spans.step_median_ms(run, "train.forward.embed", "device_s")

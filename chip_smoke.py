@@ -6,7 +6,7 @@ against their plain versions.
 
 Needs one CUDA card, ``nvcc`` and a C++ compiler; builds the kernels from
 ``wide_deep_tpu_torch/csrc`` itself (into ``build/kernels``) and the C++
-loader from ``cpp/fastdata.cc`` (into ``build/native``).  Phases, one line
+loader from ``csrc/fastdata.cc`` (into ``build/native``).  Phases, one line
 each on stdout:
 
 0. the card's name and power limit (nvidia-smi), the kernels' and the
@@ -214,6 +214,21 @@ each on stdout:
     port's kernels printed; fails on an empty trace or a kernel the step
     launched missing from the ``kernel`` bucket; the committed
     perf_budget_torch.json compared, not gated;
+13. DLRM-DCNv2 (``dnn_bottom_units``, ``dnn_interaction: dcn``, the
+    RowwiseAdagrad d128 table, sum pooling; alone: ``python3 chip_smoke.py
+    --only dcn``): K1 at d128 over the stream of the benchmark cell
+    ``dcnv2_train_packed`` (8,192 rows x 214 ids drawn zipf-1.3 over the
+    26 tables' rows held on one of 8 GPUs, ``DCN_TABLES``; its compact
+    plan, 1,753,088 entries, bfloat16 gradients summed in float32 into
+    the plan's distinct rows, as the step calls it) and K3 writing those
+    rows into the [26,500,352, 132] float32 table (and
+    again at 136 columns, the rounding to whole 32-byte sectors that the
+    table's width does not take), each held to its plain version and
+    timed as a phase 1 row; then the port's Trainer on a small DCN conf
+    (``DCN_SMALL``, its tables fused at any size) for 3 steps on the card
+    and on the host from one state: every step launches K1 once at d128
+    and K3 once at width 132, the card's losses and state within
+    ``DCN_TOL`` of the host's, and the step's ms by CUDA events;
 then one JSON line describing the kernels (with each row's launches on the
 CLI path, on the CNN path and, by rank, on the sharded path and the dedup
 path; the dedup slot sums have rows of their own), and the device line.
@@ -1711,7 +1726,8 @@ def site_names(trainer, batch=BATCH):
     """{(rows, D): site} of K1's call sites in ``trainer``'s step at
     ``batch`` rows, from its plan: the wide gather (and the FM factors'),
     the kernel-planned groups (D + 1 when folded), the d16 stream's ok=0
-    branch and the fused tables' compact sums."""
+    branch and the fused tables' compact sums, whose rows are the batch's
+    distinct ids, and so keyed (None, D)."""
     plan = trainer.plan
     out = {(plan.wide_dim, 1): "K1 wide"}
     if trainer.model.fm_factors:
@@ -1719,8 +1735,7 @@ def site_names(trainer, batch=BATCH):
     for g in plan.groups:
         width = g.dim + (1 if g.folded else 0)
         if plan.sparse_opt_group(g, batch):
-            n = batch * plan.group_packed_len[g.dim]
-            out[n, g.dim] = f"K1 d{g.dim} compact"
+            out[None, g.dim] = f"K1 d{g.dim} compact"
         elif plan.scatter_group(g, batch):
             out[g.rows, width] = f"K1 d{g.dim}"
         elif plan.window_group(g, batch):
@@ -1735,9 +1750,15 @@ def site_counts(trainer, batch=BATCH, names=None):
     c = {k: v for k, v in counts().items() if not k.startswith("K1 ")}
     names = names or site_names(trainer, batch)
     for shape, n in scatter.range_launches_by_shape.items():
-        key = names.get(shape, f"K1 rows={shape[0]} D={shape[1]}")
+        key = site_of(names, *shape)
         c[key] = c.get(key, 0) + n
     return c
+
+
+def site_of(names, rows, d):
+    """K1's site of a launch into [rows, d] by ``site_names``' map."""
+    return names.get((rows, d), names.get((None, d),
+                                          f"K1 rows={rows} D={d}"))
 
 
 def nonzero(d):
@@ -1884,10 +1905,13 @@ def recorded_update(trainer):
             leaf_update_(spec, lr, count, w, g, slots)
             worst["/".join(map(str, path))] = worst_ulp(
                 [w] + list(slots.values()), after)
+        # a table's calls over the recorded steps under one key: each step
+        # updates its batch's distinct rows, so their counts differ
         for spec, lr, w, g, slots, after in rows:
             w_new, new = row_update(spec, lr, w, g, slots)
-            worst[f"dnn/embed/d{w.shape[1]} fused rows ({w.shape[0]})"] = \
-                worst_ulp([w_new] + [new[k] for k in sorted(new)], after)
+            key = f"dnn/embed/d{w.shape[1]} fused rows"
+            worst[key] = max(worst.get(key, 0), worst_ulp(
+                [w_new] + [new[k] for k in sorted(new)], after))
         return worst, skipped
     return replay
 
@@ -2416,7 +2440,7 @@ def held_to_plain(tr, what):
         if out_dtype == torch.bfloat16:
             tol += BF16_TOL * want.abs()
         d = g_flat.shape[1]
-        seen.append((names.get((rows, d), f"K1 rows={rows} D={d}"),
+        seen.append((site_of(names, rows, d),
                      f"{g_flat.shape[0]} ids -> [{rows}, {d}]",
                      float(err.max()) if err.numel() else 0.0,
                      bool((err <= tol).all())))
@@ -3615,6 +3639,227 @@ def phase_sharded(card, tmp):
             [r["launches"] for r in res_d], res_d[0]["held"])
 
 
+# ----------------------------------------------------------------- phase 13
+# the DLRM-DCNv2 cell's tables as one of 8 GPUs holds them (rows, multi-hot
+# size), benchmark/configs/dlrm_dcnv2_criteo1tb_8th.json
+DCN_TABLES = ((5000000, 3), (39060, 2), (17295, 1), (7424, 2), (20265, 6),
+              (3, 1), (7122, 1), (1543, 1), (63, 1), (5000000, 7),
+              (383494, 3), (405282, 8), (10, 1), (2209, 6), (11938, 9),
+              (155, 5), (4, 1), (976, 1), (14, 1), (5000000, 12),
+              (5000000, 100), (5000000, 27), (590152, 10), (12973, 3),
+              (108, 1), (36, 1))
+DCN_BATCH = 8192
+# the small conf of the Trainer check: (rows, hotness) of 4 tables
+DCN_SMALL = ((50021, 3), (20011, 100), (3001, 1), (997, 7))
+# card against host over 3 steps: the two sum in other orders (cuBLAS
+# against the host's GEMMs, K1 against index_add_), a flipped bfloat16
+# rounding moves an O(1) value by 2^-8, and Adagrad's first steps move
+# every weight by about its rate whatever the gradient's size, so the
+# flips grow step by step (PR 20's first card run: the third loss 2.2e-3
+# apart): the losses within 1e-2 relative, each leaf's change within 5%
+# of its norm
+DCN_TOL = {"loss": 1e-2, "change": 5e-2}
+
+
+def dcn_stream(rng):
+    """The cell's d128 pool as the loader packs it: each row the 26
+    features' values in order (zipf-1.3 over each table's rows), as table
+    rows of the one d128 group -> int32 [DCN_BATCH * 214]."""
+    import numpy as np
+    offsets = np.cumsum([0] + [r for r, _ in DCN_TABLES])
+    cols = [offsets[f] + rng.zipf(1.3, (DCN_BATCH, hot)) % rows
+            for f, (rows, hot) in enumerate(DCN_TABLES)]
+    return np.concatenate(cols, axis=1).reshape(-1).astype(np.int32), int(
+        offsets[-1])
+
+
+def dcn_kernel_rows(device):
+    """K1 at d128 and K3 at widths 132 and 136 at the cell's shapes ->
+    the kernels rows."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=device).manual_seed(13)
+    ids, n_rows = dcn_stream(rng)
+    table_rows = -(-n_rows // 256) * 256
+    plan = scatter.make_compact_plan(ids, table_rows)
+    n = ids.size
+    live = int(plan["ids"][-1]) + 1
+    log(f"phase 13: the d128 stream: {n} entries, {live} distinct rows of "
+        f"{table_rows}; {scatter.range_carry_levels(n)} carry levels")
+    tp = {k: torch.from_numpy(v).to(device) for k, v in plan.items()}
+    g = torch.randn((n, 128), generator=gen, device=device).to(
+        torch.bfloat16)
+    rows = []
+    # the step's call: the bfloat16 sink gradient in, float32 sums out, over
+    # the plan's distinct rows (optim/sparse.apply_fused_update)
+    rows.append(check_scatter(
+        "K1 range_scatter_add d128 compact",
+        lambda: scatter.range_scatter_add(tp["ids"], tp["perm"], g,
+                                          tp["tiles"], live, torch.float32),
+        lambda: scatter.range_scatter_add_plain(tp["ids"], tp["perm"],
+                                                g, live, torch.float32),
+        lambda: torch.zeros((live, 128), device=device).index_add_(
+            0, tp["ids"].long(), g[tp["perm"].long()].float()),
+        torch.float32, n, 128, live, 2, 0,
+        "wide_deep_tpu_torch/csrc/range_scatter.cu",
+        "wide_deep_tpu/ops/scatter.py:184", memset=True,
+        magnitudes=lambda: scatter.range_scatter_add_plain(
+            tp["ids"], tp["perm"], g.abs(), live, torch.float32)))
+    del g
+    release()
+    # the step's write-back: the distinct rows, and one sentinel uid past
+    # them (check_writeback holds the kernel to skipping it)
+    uids = tp["uids"][:live + 1].contiguous()
+    for width in (132, 136):
+        table = torch.zeros((table_rows, width), device=device)
+        new_rows = torch.randn((live + 1, width), generator=gen,
+                               device=device)
+        rows.append(check_writeback(
+            f"K3 rowdma_scatter_rows w{width}", rowdma.rowdma_scatter_rows,
+            table, uids, new_rows,
+            "wide_deep_tpu_torch/csrc/rowdma.cu",
+            "wide_deep_tpu/ops/rowdma.py:80"))
+        del table, new_rows
+        release()
+    return rows
+
+
+def dcn_small_conf(tmp):
+    """The small DCN conf of the Trainer check in ``tmp``: DCN_SMALL's
+    tables at d128, the cell's widths elsewhere (bottom 512-256-128, 3
+    cross layers of rank 512, top 1024-1024-512-256)."""
+    import yaml
+    os.makedirs(tmp, exist_ok=True)
+    dense = [f"i{j}" for j in range(1, 14)]
+    cats = [f"c{j}" for j in range(1, len(DCN_SMALL) + 1)]
+    docs = {
+        "schema": {"columns": ["clicked"] + dense + cats},
+        "feature": dict(
+            {d: {"type": "continuous", "transform": "log1p"} for d in dense},
+            **{c: {"type": "category", "transform": "hash_bucket",
+                   "parameter": r, "embedding_dim": 128, "max_len": h,
+                   "combiner": "sum"} for c, (r, h) in zip(cats, DCN_SMALL)}),
+        "cross_feature": {},
+        "model": {"linear_optimizer": "Ftrl",
+                  "dnn_optimizer": {"name": "Adagrad",
+                                    "learning_rate": 0.005},
+                  "dnn_embedding_optimizer": {"name": "RowwiseAdagrad",
+                                              "learning_rate": 0.005},
+                  "dnn_bottom_units": [512, 256, 128],
+                  "dnn_interaction": {"type": "dcn", "layers": 3,
+                                      "rank": 512},
+                  "dnn_hidden_units": [1024, 1024, 512, 256],
+                  "embedding_dtype": "bfloat16", "dense_dtype": "bfloat16"},
+        "train": {"train": {
+            "model_dir": os.path.join(tmp, "m"), "model_type": "deep",
+            "train_data": "x", "eval_data": "x", "test_data": "x",
+            "batch_size": 1024, "num_examples": 1 << 20, "multivalue": 1,
+            "pack_budget": 100, "sparse_optimizer": 1,
+            "scatter_mode": "pallas", "keep_train": 0}},
+        "serving": {"SavedModel": {"model_dir": "x", "model_type": "deep"}},
+        "data_process": {}}
+    for name, doc in docs.items():
+        with open(os.path.join(tmp, name + ".yaml"), "w") as f:
+            yaml.safe_dump(doc, f, sort_keys=False)
+    return tmp
+
+
+def phase_dcn(card, tmp):
+    """Phase 13 (module docstring) -> (kernels rows, launch counts)."""
+    import numpy as np
+    import torch
+
+    from wide_deep_tpu_torch.config import Config
+    from wide_deep_tpu_torch.features.pipeline import FeatureTransformer
+    from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.optim import sparse as sparse_lib
+    from wide_deep_tpu_torch.optim import tree_items
+    from wide_deep_tpu_torch.tools import median_ms
+    from wide_deep_tpu_torch.training.loop import Trainer
+    t0 = time.time()
+    device = torch.device("cuda")
+    rows = dcn_kernel_rows(device)
+    conf = dcn_small_conf(os.path.join(tmp, "dcn_conf"))
+    rng = np.random.default_rng(5)
+    batches = []
+    saved = sparse_lib.SPARSE_MIN_ROWS
+    sparse_lib.SPARSE_MIN_ROWS = 1
+    try:
+        trs = {}
+        for dev in ("cpu", "cuda"):
+            trs[dev] = Trainer(Config(conf), "deep",
+                               model_dir=os.path.join(tmp, f"dcn_{dev}"),
+                               device=dev)
+        trs["cpu"].ensure_initialized(restore=False)
+        trs["cuda"].ensure_initialized(restore=False)
+        with torch.no_grad():
+            for (p, a), (_, b) in zip(tree_items(trs["cpu"].params),
+                                      tree_items(trs["cuda"].params)):
+                b.copy_(a)
+        plan = trs["cpu"].plan
+        spec = plan.batch_spec(1024)
+        for _ in range(3):
+            lines = []
+            for r in range(1024):
+                cells = [str(int(rng.random() < 0.1))] + [
+                    str(int(rng.lognormal(1.0, 2.0))) for _ in range(13)]
+                for j, (n_rows, hot) in enumerate(DCN_SMALL):
+                    cells.append(",".join(
+                        f"c{j}_{v}" for v in rng.zipf(1.3, hot) % n_rows))
+                lines.append("\t".join(cells))
+            b = FeatureTransformer(plan).transform(
+                [ln.split("\t") for ln in lines], 1024)
+            assert set(b) == set(spec), sorted(set(b) ^ set(spec))
+            batches.append(b)
+        counts0 = (scatter.range_launches_by_width().get(128, 0),
+                   rowdma.rowdma_launches_by_width.get(132, 0))
+        losses = {}
+        for dev, tr in trs.items():
+            losses[dev] = []
+            for b in batches:
+                losses[dev].append(float(tr.train_batch(b)))
+        torch.cuda.synchronize()
+        counts = (scatter.range_launches_by_width().get(128, 0) - counts0[0],
+                  rowdma.rowdma_launches_by_width.get(132, 0) - counts0[1])
+        if counts != (3, 3):
+            raise SystemExit(f"phase 13: K1 d128 / K3 w132 launches over 3 "
+                             f"steps: {counts}, want (3, 3)")
+        loss_gap = max(abs(a - b) / abs(a)
+                       for a, b in zip(losses["cpu"], losses["cuda"]))
+        start = Trainer(Config(conf), "deep",
+                        model_dir=os.path.join(tmp, "dcn_start"),
+                        device="cpu")
+        start.ensure_initialized(restore=False)
+        worst, at = 0.0, ""
+        with torch.no_grad():
+            for (p, w0), (_, a), (_, b) in zip(
+                    tree_items(start.params), tree_items(trs["cpu"].params),
+                    tree_items(trs["cuda"].params)):
+                gap = float(torch.linalg.norm(b.cpu() - a))
+                rel = gap / max(float(torch.linalg.norm(a - w0)), 1e-30)
+                if rel > worst:
+                    worst, at = rel, "/".join(str(k) for k in p)
+        log(f"phase 13: DCN Trainer, card against host: losses "
+            f"{losses['cuda']} / {losses['cpu']} ({loss_gap:.3g} apart at "
+            f"most); the worst leaf's change {worst:.3g} of its norm apart "
+            f"({at})")
+        if loss_gap > DCN_TOL["loss"] or worst > DCN_TOL["change"]:
+            raise SystemExit(f"phase 13: card and host apart beyond "
+                             f"{DCN_TOL}")
+        tr = trs["cuda"]
+        dev_batch = tr._device_batch(batches[0])
+        step_ms = median_ms(lambda: tr.train_batch(dev_batch), 10, device)
+    finally:
+        sparse_lib.SPARSE_MIN_ROWS = saved
+    log(f"phase 13: DCN Trainer at batch 1024: K1 d128 and K3 w132 once "
+        f"a step; {step_ms:.3f} ms a step (CUDA events, median of 10); "
+        f"phase 13 in {time.time() - t0:.1f} s")
+    return rows, {"K1 d128": counts[0], "K3 w132": counts[1]}
+
+
 def phase_perf_gate(profile_dir):
     """Phase 12: the perf gate on phase 5's trace of 3 device-stage steps
     (the bench tool under ``BENCH_PROFILE``): ``tools.parse_trace``'s
@@ -3727,6 +3972,7 @@ def main():
 
     card = device_name(torch.device("cuda"))    # nvidia-smi's line
     log(card)
+    only_dcn = sys.argv[1:] == ["--only", "dcn"]
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
         loader = pool.submit(native.build)
@@ -3738,6 +3984,14 @@ def main():
         f"{'built' if loader['built'] else 'found'} in "
         f"{loader['seconds']:.1f} s: {os.path.relpath(loader['path'], ROOT)}")
 
+    if only_dcn:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_dcn_")
+        try:
+            dcn_rows, _ = phase_dcn(card, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(json.dumps({"kernels": dcn_rows}))
+        return 0
     device = torch.device("cuda")
     config = Config(os.path.join(ROOT, "conf"))
     train_conf = dict(config.train, batch_size=BATCH, pack_budget=3)
@@ -3781,6 +4035,8 @@ def main():
         cnn_counts = phase_cnn(card, tmp)
         release()
         sharded, sharded_dedup, dedup_held = phase_sharded(card, tmp)
+        release()
+        dcn_rows, dcn_counts = phase_dcn(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_perf_gate(profile_dir)
@@ -3818,6 +4074,9 @@ def main():
             "ok": h["ok"], "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"]})
+    for row in dcn_rows:
+        row["launches"] = dcn_counts["K1 d128" if row["name"].startswith(
+            "K1") else "K3 w132"] if "w136" not in row["name"] else 0
     if not all(row["launches"] > 0 for row in kernels):
         raise SystemExit(f"a kernel never ran on its path: train "
                          f"{main_counts}, tools {tool_counts}")
@@ -3837,6 +4096,7 @@ def main():
                for s in sharded_dedup):
         raise SystemExit(f"a kernel never ran on the dedup path: "
                          f"{sharded_dedup}")
+    kernels.extend(dcn_rows)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,13 +107,15 @@ def test_chip_smoke_needs_the_repo(tmp_path):
 
 def test_port_builds_its_own_loader():
     """The port never names the loader library committed in cpp/; it
-    compiles cpp/fastdata.cc and loads the result from build/."""
+    compiles its own copy, csrc/fastdata.cc, and loads the result from
+    build/."""
     from wide_deep_tpu_torch.features import native
     committed = "libwdtfastdata" + ".so"
     for path in _port_files():
         with open(path) as f:
             assert committed not in f.read(), path
-    assert native.SOURCE == os.path.join(REPO, "cpp", "fastdata.cc")
+    assert native.SOURCE == os.path.join(REPO, "wide_deep_tpu_torch", "csrc",
+                                         "fastdata.cc")
     lib = native.library()
     assert os.path.dirname(lib._name) == os.path.join(REPO, "build", "native")
     assert os.path.basename(lib._name).startswith("libwdtfastdata_")

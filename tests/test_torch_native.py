@@ -1,7 +1,8 @@
 """The port's binding of the C++ loader against the JAX package's.
 
 ``serialize_plan`` must give the JAX package's bytes (the blob format is
-fastdata.cc's).  The port's ``NativeTransformer`` must give, bit for bit,
+fastdata.cc's) under the port's version, 13, and then its trailer of
+pooling flags.  The port's ``NativeTransformer`` must give, bit for bit,
 the JAX package's native batches and the port's Python transformer's, on
 train batches with range, window and compact kernel plans, eval and pred
 batches, pos/neg weights, edge values and malformed rows.  The port's
@@ -11,6 +12,7 @@ are exact (integer ids, plans, float32 values from the same arithmetic).
 """
 
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -41,7 +43,13 @@ def test_serialize_plan_matches_jax(conf_dir, which):
     d = conf_dir if which == "small" else os.path.join(REPO, "conf")
     jp, tp = plan_pair(d, pallas_scatter=True, sparse_opt=True,
                        pack_budget=3)
-    assert tser(tp) == jser(jp)
+    jblob = jser(jp)
+    assert jblob[4:12] == struct.pack("<q", 12)
+    # v13: v12's fields, then one flag a feature; none of these sums
+    trailer = struct.pack(f"<{len(tp.feature_order)}q",
+                          *[0] * len(tp.feature_order))
+    assert tser(tp) == (jblob[:4] + struct.pack("<q", 13) + jblob[12:]
+                        + trailer)
 
 
 def _edge_row(plan, row):

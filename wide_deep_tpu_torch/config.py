@@ -30,12 +30,29 @@ import yaml
 
 # Feature-transform vocabulary.
 CATEGORY_TRANSFORMS = ("hash_bucket", "vocab", "identity")
-CONTINUOUS_TRANSFORMS = ("min_max", "log", "standard")
+CONTINUOUS_TRANSFORMS = ("min_max", "log", "log1p", "standard")
+# How a multi-valued embedding feature pools its rows (feature.yaml
+# ``combiner``): the mean (the default) or the sum.
+COMBINERS = ("mean", "sum")
+# The longest multi-valued cell a feature may keep (feature.yaml
+# ``max_len``): the native loader's split buffer (csrc/fastdata.cc
+# kMaxValues) holds this many values.
+MAX_LEN_CAP = 128
 
 # Canonical optimizer names accepted by the registry (optim/__init__.py).
 OPTIMIZER_NAMES = (
     "Adagrad", "Adam", "Ftrl", "RMSProp", "SGD", "Momentum", "ProximalAdagrad",
 )
+# The rules the fused touched-rows tables take (model.yaml
+# ``dnn_embedding_optimizer``, optim/sparse.py); RowwiseAdagrad exists
+# there alone: one accumulator a row.
+EMBEDDING_OPTIMIZER_NAMES = (
+    "Adagrad", "ProximalAdagrad", "Ftrl", "SGD", "RowwiseAdagrad",
+)
+# model.yaml ``dnn_interaction``: the layer between the input layer and the
+# tower.  ``dcn``: the low-rank cross network of DCN-V2 (Wang et al.,
+# arXiv:2008.13535), ``layers`` cross layers of rank ``rank``.
+INTERACTION_TYPES = ("dcn",)
 
 _TF_OPT_RE = re.compile(r"^tf\.train\.(\w+?)Optimizer\((.*)\)$", re.S)
 
@@ -88,7 +105,9 @@ def _as_number(value: Any, key: str, where: str, allow_none: bool = False):
     return value
 
 
-def parse_optimizer_spec(value: Any, default_lr: float) -> Dict[str, Any]:
+def parse_optimizer_spec(value: Any, default_lr: float,
+                         names: Tuple[str, ...] = OPTIMIZER_NAMES
+                         ) -> Dict[str, Any]:
     """Normalize an optimizer config value into ``{name, learning_rate, ...}``.
 
     Accepts a bare registry name (``"Adagrad"``), a structured mapping
@@ -102,9 +121,9 @@ def parse_optimizer_spec(value: Any, default_lr: float) -> Dict[str, Any]:
     if isinstance(value, dict):
         spec = dict(value)
         name = _require(spec, "name", "optimizer spec")
-        if name not in OPTIMIZER_NAMES:
+        if name not in names:
             raise ConfigError(
-                f"unknown optimizer `{name}`; expected one of {OPTIMIZER_NAMES}")
+                f"unknown optimizer `{name}`; expected one of {names}")
         spec.setdefault("learning_rate", default_lr)
         return spec
     if isinstance(value, str):
@@ -112,7 +131,7 @@ def parse_optimizer_spec(value: Any, default_lr: float) -> Dict[str, Any]:
         m = _TF_OPT_RE.match(value)
         if m:
             stem, argstr = m.groups()
-            if stem not in _TF_OPT_NAME:
+            if stem not in _TF_OPT_NAME or _TF_OPT_NAME[stem] not in names:
                 raise ConfigError(f"unknown tf.train optimizer `{stem}`")
             spec: Dict[str, Any] = {"name": _TF_OPT_NAME[stem]}
             argstr = argstr.strip()
@@ -134,13 +153,38 @@ def parse_optimizer_spec(value: Any, default_lr: float) -> Dict[str, Any]:
             spec.setdefault("learning_rate", default_lr)
             return spec
         # bare registry name (case-insensitive)
-        for name in OPTIMIZER_NAMES:
+        for name in names:
             if value.lower() == name.lower():
                 return {"name": name, "learning_rate": default_lr}
         raise ConfigError(
-            f"unknown optimizer `{value}`; expected one of {OPTIMIZER_NAMES} "
+            f"unknown optimizer `{value}`; expected one of {names} "
             "or a tf.train.XxxOptimizer(...) string")
     raise ConfigError(f"bad optimizer spec: {value!r}")
+
+
+def _interaction(value: Any, where: str) -> Optional[Dict[str, Any]]:
+    """model.yaml ``dnn_interaction`` -> None (off) or ``{type: dcn,
+    layers: int, rank: int}``."""
+    if value is None:
+        return None
+    if not isinstance(value, dict):
+        raise ConfigError(f"{where}: dnn_interaction must be a mapping, "
+                          f"got {value!r}")
+    unknown = sorted(set(value) - {"type", "layers", "rank"})
+    if unknown:
+        raise ConfigError(f"{where}: dnn_interaction: unknown keys {unknown}")
+    kind = value.get("type")
+    if kind not in INTERACTION_TYPES:
+        raise ConfigError(f"{where}: dnn_interaction type must be one of "
+                          f"{INTERACTION_TYPES}, got {kind!r}")
+    out: Dict[str, Any] = {"type": kind}
+    for key in ("layers", "rank"):
+        v = value.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            raise ConfigError(f"{where}: dnn_interaction {key} must be a "
+                              f"positive int, got {v!r}")
+        out[key] = v
+    return out
 
 
 class Config:
@@ -272,13 +316,13 @@ class Config:
             max_len = conf.get("max_len", 1)
             if not isinstance(max_len, int) or max_len < 1:
                 raise ConfigError(f"{where}: max_len must be a positive int")
-            if max_len > 64:
+            if max_len > MAX_LEN_CAP:
                 # hard contract with the native loader's fixed per-cell
-                # split buffer (cpp/fastdata.cc View vals[64]) — reject at
+                # split buffer (csrc/fastdata.cc kMaxValues) — reject at
                 # config time instead of overflowing a worker stack
                 raise ConfigError(
-                    f"{where}: max_len must be <= 64 (native loader "
-                    f"split-buffer contract), got {max_len}")
+                    f"{where}: max_len must be <= {MAX_LEN_CAP} (native "
+                    f"loader split-buffer contract), got {max_len}")
             if ftype == "continuous" and max_len != 1:
                 raise ConfigError(f"{where}: continuous features are scalar")
             emb_dim = conf.get("embedding_dim")
@@ -288,9 +332,19 @@ class Config:
                     raise ConfigError(
                         f"{where}: embedding_dim must be a positive int on a "
                         "hash_bucket feature")
+            combiner = conf.get("combiner")
+            if combiner is not None and (combiner not in COMBINERS
+                                         or transform != "hash_bucket"):
+                raise ConfigError(
+                    f"{where}: combiner must be one of {COMBINERS} on a "
+                    f"hash_bucket feature, got {combiner!r}")
             out[feature] = {"type": ftype, "transform": transform,
                             "parameter": parameter, "max_len": max_len,
                             "embedding_dim": emb_dim}
+            # the new keys appear only where set: a conf without them
+            # reads as the JAX package's does
+            if combiner is not None:
+                out[feature]["combiner"] = combiner
         return out
 
     # ----------------------------------------------------------------- crosses
@@ -366,6 +420,11 @@ class Config:
             _require(raw, "dnn_optimizer", where), dnn_lr)
         out["cnn_optimizer"] = parse_optimizer_spec(
             raw.get("cnn_optimizer", "Adagrad"), cnn_lr)
+        # the fused touched-rows tables' own rule; unset: dnn_optimizer's
+        emb_opt = raw.get("dnn_embedding_optimizer")
+        if emb_opt is not None:
+            out["dnn_embedding_optimizer"] = parse_optimizer_spec(
+                emb_opt, dnn_lr, EMBEDDING_OPTIMIZER_NAMES)
         out["linear_fm_factors"] = int(raw.get("linear_fm_factors") or 0)
         # wide fold: store hash/deep-cross wide weights as trailing columns
         # of their fused embedding tables (features/plan.py "wide fold");
@@ -395,6 +454,22 @@ class Config:
         if not isinstance(hidden, list) or not hidden:
             raise ConfigError(f"{where}: dnn_hidden_units must be a non-empty list")
         out["dnn_hidden_units"] = hidden
+        bottom = raw.get("dnn_bottom_units")
+        if bottom is not None and (
+                not isinstance(bottom, list) or not bottom
+                or not all(isinstance(u, int) and not isinstance(u, bool)
+                           and u > 0 for u in bottom)):
+            raise ConfigError(f"{where}: dnn_bottom_units must be a "
+                              f"non-empty list of positive ints, got "
+                              f"{bottom!r}")
+        if bottom and not self.get_feature_name("continuous"):
+            raise ConfigError(f"{where}: dnn_bottom_units needs continuous "
+                              f"features to take")
+        if bottom:
+            out["dnn_bottom_units"] = list(bottom)
+        interaction = _interaction(raw.get("dnn_interaction"), where)
+        if interaction is not None:
+            out["dnn_interaction"] = interaction
         out["dnn_connected_mode"] = raw.get("dnn_connected_mode", "simple")
         act = str(raw.get("dnn_activation_function", "relu")).lower()
         out["dnn_activation_function"] = act

@@ -48,7 +48,16 @@
 //     1 + log16(C) levels, no warp adds more than 32 partials in order, and
 //     the host knows the levels from n alone (5 for 7,577,600 positions);
 //   * rows that no id touches are zero: the C entry clears the output with
-//     cudaMemsetAsync before the first launch.
+//     cudaMemsetAsync before the first launch;
+//   * wide rows (d >= kWideMin: the DLRM-DCNv2 table's d128) take another
+//     chunk pass, sum_chunk_wide (range_chunk_kernel<T, O, true>): the
+//     same warp per chunk, the same cut runs in the same slots for the
+//     same carry levels, but the warp walks its 32 positions in order with
+//     each lane holding a column every 32 (up to kWideCols columns a block
+//     row), so each gradient row is read whole, 32 lanes at consecutive
+//     columns, and a run's sums stay in registers until its tail stores
+//     them; no shuffle scan and no slab, whose per-column work grows with
+//     d.  The adds keep position order: the same bits on every call.
 // No atomics anywhere.  What each choice bought on an H100 (a block-wide
 // chunk of 256 with barriers, registers per warp, the column groups) is in
 // PERF.md, under K1's redesign.
@@ -62,6 +71,9 @@ constexpr int kWarps = 8;    // chunks (warps) per block of both kernels
 constexpr int kCols = 16;    // most columns a chunk's warp takes (32 bytes
                              // of bfloat16; 8 float32 columns take 32)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWideMin = 64;   // widths from here take sum_chunk_wide
+constexpr int kWideCols = 256; // most columns a block row of it takes
+constexpr int kWideRegs = kWideCols / 32;  // its sums a lane holds
 
 // One warp sums chunk b of a stream: the kChunk positions from b * kChunk
 // of ids (live: in [0, rows); equal live ids adjacent), whose rows are
@@ -191,15 +203,95 @@ __device__ __forceinline__ void sum_chunk(
   }
 }
 
-// The stream's chunks: one warp each.
+// The chunk pass for wide rows (d >= kWideMin): warp w of block b sums
+// chunk c = b * kWarps + w as sum_chunk does, walking its positions in
+// order; block row y takes columns [y * kWideCols, ...), a column every 32
+// a lane.  Cut runs leave their partials in the same slots as sum_chunk's.
 template <typename T, typename O>
+__device__ __forceinline__ void sum_chunk_wide(
+    const int* __restrict__ ids, const int* __restrict__ perm,
+    const T* __restrict__ g, int n, int rows, int d, O* __restrict__ out,
+    int* __restrict__ next_ids, float* __restrict__ next_vals) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int s = b * kChunk;
+  if (s >= n) return;  // the whole warp
+  const int m = min(kChunk, n - s);
+  int id = -1;
+  int pr = 0;
+  if (lane < m) {
+    id = ids[s + lane];
+    pr = perm ? perm[s + lane] : s + lane;
+  }
+  const int before = s > 0 ? ids[s - 1] : -1;
+  const int after = kChunk < n - s ? ids[s + kChunk] : -1;
+  const int first = __shfl_sync(kFull, id, 0);
+  const int last = __shfl_sync(kFull, id, m - 1);
+  const bool lo = (unsigned)first < (unsigned)rows && before == first;
+  const bool hi = (unsigned)last < (unsigned)rows && m == kChunk &&
+                  after == last;
+  if (lane == 0 && blockIdx.y == 0) {
+    next_ids[2 * b] = lo ? first : -1;
+    next_ids[2 * b + 1] = hi ? last : -1;
+  }
+  const int c0 = blockIdx.y * kWideCols;
+  const int nc = min(kWideCols, d - c0);
+  if (lo && hi && first == last) {  // one run through: zero in slot 1
+    for (int c = lane; c < nc; c += 32) {
+      next_vals[((int64_t)b * 2 + 1) * d + c0 + c] = 0.f;
+    }
+  }
+  float acc[kWideRegs];
+#pragma unroll
+  for (int j = 0; j < kWideRegs; ++j) acc[j] = 0.f;
+  for (int p = 0; p < m; ++p) {
+    const int idp = __shfl_sync(kFull, id, p);
+    const int pp = __shfl_sync(kFull, pr, p);
+    const int idn = __shfl_sync(kFull, id, (p + 1) & 31);
+    if ((unsigned)idp >= (unsigned)rows) continue;  // a sentinel (uniform)
+    const T* row = g + (int64_t)pp * d + c0;
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) {
+      const int c = lane + 32 * j;
+      if (c < nc) acc[j] += wdt::load_f(row, c);
+    }
+    if (p + 1 < m && idn == idp) continue;  // the run goes on at p + 1
+    // the run's part in this chunk ends at p: the chunk's first run begun
+    // earlier (slot 0, a run through included) or its last run going on
+    // (slot 1), else the whole run, out
+    const int slot = idp == first && before == idp ? 0
+                     : p == m - 1 && after == idp  ? 1
+                                                   : -1;
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) {
+      const int c = lane + 32 * j;
+      if (c < nc) {
+        if (slot >= 0) {
+          next_vals[((int64_t)b * 2 + slot) * d + c0 + c] = acc[j];
+        } else {
+          wdt::store_f(out, (int64_t)idp * d + c0 + c, acc[j]);
+        }
+      }
+      acc[j] = 0.f;
+    }
+  }
+}
+
+// The stream's chunks: one warp each; rows of kWideMin columns or more
+// (kWide) walked by sum_chunk_wide.
+template <typename T, typename O, bool kWide>
 __global__ void __launch_bounds__(kWarps * 32)
     range_chunk_kernel(const int* __restrict__ ids,
                        const int* __restrict__ perm,
                        const T* __restrict__ g, int n, int rows, int d,
                        O* __restrict__ out, int* __restrict__ next_ids,
                        float* __restrict__ next_vals) {
-  sum_chunk<T, O>(ids, perm, g, n, rows, d, out, next_ids, next_vals);
+  if constexpr (kWide) {
+    sum_chunk_wide<T, O>(ids, perm, g, n, rows, d, out, next_ids,
+                         next_vals);
+  } else {
+    sum_chunk<T, O>(ids, perm, g, n, rows, d, out, next_ids, next_vals);
+  }
 }
 
 // One carry level: the previous pass's n slots (keys, float32 partials),
@@ -231,11 +323,18 @@ void launch(const int* ids, const int* perm, const T* g, int n, int rows,
   int64_t chunks = n_chunks_for(n);
   int* next_ids = reinterpret_cast<int*>(scratch);
   float* next_vals = scratch + 2 * chunks;
-  // column groups of one 32-byte sector of a row: nc <= kCols
-  const int groups = (int)(((int64_t)d * sizeof(T) + 31) / 32);
-  range_chunk_kernel<T, O><<<dim3(blocks_for(chunks), groups), kWarps * 32,
-                             0, stream>>>(ids, perm, g, n, rows, d, out,
-                                          next_ids, next_vals);
+  if (d >= kWideMin) {
+    const int groups = (d + kWideCols - 1) / kWideCols;
+    range_chunk_kernel<T, O, true><<<dim3(blocks_for(chunks), groups),
+                                     kWarps * 32, 0, stream>>>(
+        ids, perm, g, n, rows, d, out, next_ids, next_vals);
+  } else {
+    // column groups of one 32-byte sector of a row: nc <= kCols
+    const int groups = (int)(((int64_t)d * sizeof(T) + 31) / 32);
+    range_chunk_kernel<T, O, false><<<dim3(blocks_for(chunks), groups),
+                                      kWarps * 32, 0, stream>>>(
+        ids, perm, g, n, rows, d, out, next_ids, next_vals);
+  }
   const int carry_groups = (int)(((int64_t)d * sizeof(float) + 31) / 32);
   while (chunks > 1) {
     const int* level_ids = next_ids;

@@ -10,7 +10,7 @@ deliberately target *metric-level* parity (AUC/logloss), not bucket-level
 parity, so this module defines its own fully documented hash stack:
 
 * ``fingerprint64(bytes)`` — XXH64 (public xxHash spec, seed 0).  Implemented
-  in pure Python here and identically in C++ (cpp/fastdata.cc); the test suite
+  in pure Python here and identically in C++ (csrc/fastdata.cc); the test suite
   pins both to the published xxHash test vectors.
 * ``combine64(a, b)`` — an order-sensitive 64-bit mixing chain used to fold
   member fingerprints of a crossed feature into one fingerprint.  Expressible

@@ -1,15 +1,18 @@
-"""The port's binding of the C++ loader (``cpp/fastdata.cc``).
+"""The port's binding of its C++ loader (``csrc/fastdata.cc``).
 
 The port's own copy of the JAX package's ``features/native.py``:
 ``serialize_plan`` turns a FeaturePlan into the binary blob that
-``fastdata.cc::parse_plan`` reads (format v12, the two must change
-together), and ``NativeTransformer`` packs raw TSV text into a Batch that is
-bit-identical to ``pipeline.FeatureTransformer``'s (same xxHash64, same cross
-chain, same packing, the same kernel plans) in multithreaded C++.
+``fastdata.cc::parse_plan`` reads (format v13: the JAX package's v12, then
+a pooling flag per feature; the two must change together), and
+``NativeTransformer`` packs raw TSV text into a Batch that is bit-identical
+to ``pipeline.FeatureTransformer``'s (same xxHash64, same cross chain, same
+packing, the same kernel plans) in multithreaded C++.
 
-The library is compiled here from ``cpp/fastdata.cc`` at first use, with the
-flags of ``cpp/Makefile``, into ``build/native/libwdtfastdata_<digest>.so``
-at the repo root; the committed build in ``cpp/`` is never loaded.  It is
+The library is compiled here from ``csrc/fastdata.cc`` (the port's copy of
+the JAX package's ``cpp/fastdata.cc``, with longer cells, ``log1p`` and sum
+pooling) at first use, with the flags of ``cpp/Makefile``, into
+``build/native/libwdtfastdata_<digest>.so`` at the repo root; the committed
+build in ``cpp/`` is never loaded.  It is
 compiled with ``-march=native``, so a library built on one host could stop
 another host's process with an illegal instruction: the digest covers the
 source, the flags and what ``-march=native`` means to the compiler on this
@@ -36,13 +39,14 @@ from wide_deep_tpu_torch.features.plan import FeaturePlan
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCE = os.path.join(REPO_ROOT, "cpp", "fastdata.cc")
+SOURCE = os.path.join(REPO_ROOT, "wide_deep_tpu_torch", "csrc",
+                      "fastdata.cc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "native")
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++20", "-fPIC", "-shared",
              "-pthread")
 
 _KIND = {"hash_bucket": 0, "vocab": 1, "identity": 2, "continuous": 3}
-_TRAN = {None: 0, "min_max": 1, "standard": 2, "log": 3}
+_TRAN = {None: 0, "min_max": 1, "standard": 2, "log": 3, "log1p": 4}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -109,7 +113,7 @@ def compile_cached(source: str, flags: Sequence[str], stem: str,
 
 
 def build() -> Dict[str, object]:
-    """Compile ``cpp/fastdata.cc`` unless this host's library exists
+    """Compile ``csrc/fastdata.cc`` unless this host's library exists
     (``compile_cached``)."""
     return compile_cached(SOURCE, CXX_FLAGS, "libwdtfastdata", ".so")
 
@@ -138,12 +142,13 @@ def library() -> ctypes.CDLL:
 
 
 def serialize_plan(plan: FeaturePlan) -> bytes:
-    """FeaturePlan -> binary blob for wdt_plan_create (format v12).
+    """FeaturePlan -> binary blob for wdt_plan_create (format v13).
 
     All ints int64 LE, floats f64 LE, strings length-prefixed.  Must stay in
-    lockstep with cpp/fastdata.cc::parse_plan (the JAX package's
-    ``serialize_plan`` gives the same bytes; tests/test_torch_native.py
-    holds them equal)."""
+    lockstep with csrc/fastdata.cc::parse_plan.  The JAX package's
+    ``serialize_plan`` gives v12: these bytes up to the trailer of pooling
+    flags, under another version (tests/test_torch_native.py holds them
+    so)."""
     out = bytearray()
     w = out.extend
 
@@ -159,7 +164,7 @@ def serialize_plan(plan: FeaturePlan) -> bytes:
         w(b)
 
     w(b"WDTP")
-    i64(12)
+    i64(13)
     group_index = {g.dim: gi for gi, g in enumerate(plan.groups)}
     i64(int(plan.scatter_shards))
     i64(len(plan.columns), int(plan.multivalue), int(plan.pack_budget),
@@ -217,6 +222,8 @@ def serialize_plan(plan: FeaturePlan) -> bytes:
                 int(ws.folded))
         else:
             i64(cs.bucket_size, cs.max_len, ws.offset, 0, 0, 0, 0, 0)
+    # v13's trailer: 1 where a feature sums its rows (combiner: sum)
+    i64(*(int(name in plan.sum_pooled) for name in feats))
     return bytes(out)
 
 
@@ -281,7 +288,7 @@ class NativeTransformer:
         # train mode: the kernel plans of the big groups (ops/scatter.py),
         # range, window, compact and dedup, in the order fastdata.cc fills
         # them; per table shard (a leading [n_shards] axis, plus ``ok`` /
-        # ``live`` flags) when the plan has scatter_shards > 1 (format v12,
+        # ``live`` flags) when the plan has scatter_shards > 1 (since format v12,
         # the JAX package's features/native.py:39-73, 214-305)
         masks = {"scat": 0, "wscat": 0, "sopt": 0, "dscat": 0}
         caps = (ctypes.c_int64 * len(plan.groups))()

@@ -234,7 +234,8 @@ class FeatureTransformer:
                 k = len(kept)
                 if k == 0:
                     return
-                w = 1.0 / k
+                # the mean of the kept rows, or their sum (combiner: sum)
+                w = 1.0 if es.name in plan.sum_pooled else 1.0 / k
                 dim = es.dim
                 cap = Pg[dim]
                 c = gcur[dim]

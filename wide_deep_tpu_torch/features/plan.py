@@ -157,6 +157,10 @@ class ContinuousSlot:
             return (x - self.a) / self.b
         if self.transform == "log":
             return np.log(np.maximum(x, 1e-12))
+        if self.transform == "log1p":
+            # a count's log(x + 1), negatives taken as 0 (Criteo's dense
+            # features, as MLPerf's DLRM preprocesses them)
+            return np.log1p(np.maximum(x, 0.0))
         return x
 
 
@@ -239,13 +243,19 @@ class FeaturePlan:
         # sparse row formula (optim.sparse.SPARSE_CAPABLE) because the flag
         # also fixes the sparse tables' PARAM LAYOUT (see sparse_opt_group)
         # — an incapable optimizer must see plain [rows, dim] tables.
+        # The fused tables' rule is model.yaml's dnn_embedding_optimizer
+        # where set, else dnn_optimizer (optim.sparse.table_spec).
         self.sparse_slots = 0
+        self.sparse_spec: Optional[Dict[str, Any]] = None
         if sparse_opt:
-            from wide_deep_tpu_torch.optim.sparse import SPARSE_CAPABLE, _n_slots
-            spec = config.model["dnn_optimizer"]
+            from wide_deep_tpu_torch.optim.sparse import (SPARSE_CAPABLE,
+                                                          _n_slots,
+                                                          table_spec)
+            spec = table_spec(config.model)
             sparse_opt = spec["name"] in SPARSE_CAPABLE
             if sparse_opt:
                 self.sparse_slots = _n_slots(spec)
+                self.sparse_spec = spec
         self.sparse_opt = bool(sparse_opt)
         schema = config.schema_columns()
         self.columns = schema
@@ -367,13 +377,14 @@ class FeaturePlan:
 
         def packed_capacity(slots) -> int:
             """Shared per-row id-pool capacity: 1 per single-valued slot,
-            PACK_BUDGET per multivalue slot (gather/scatter cost is linear
+            PACK_BUDGET per multivalue slot, or its max_len where that is
+            less (no more ids fit its cells) (gather/scatter cost is linear
             in this, so the pool is sized for realistic occupancy rather
             than worst case; overflow entries are dropped deterministically
             in slot order).  Vocab/identity wide slots don't use the pool:
             their wide contribution rides the indicator block as a dense
             matmul against a 379-row static gather (models/linear.py)."""
-            return sum(1 if s.max_len == 1 else self.pack_budget
+            return sum(min(s.max_len, self.pack_budget)
                        for s in slots
                        if s.kind not in ("vocab", "identity")
                        and not getattr(s, "folded", False))
@@ -396,6 +407,11 @@ class FeaturePlan:
         self.deep_embed_dim = sum(len(g.slots) * g.dim for g in groups)
         self.deep_input_dim = (self.deep_embed_dim + self.indicator_dim
                                + len(continuous_slots))
+        # embedding features pooled by their sum (feature.yaml
+        # ``combiner: sum``); the others take the mean
+        self.sum_pooled = frozenset(
+            name for name, conf in feature_conf.items()
+            if conf.get("combiner") == "sum")
         self.wide_slot_by_name = {s.name: s for s in wide_slots}
         self.embed_slot_by_name = {
             s.name: (g, s) for g in groups for s in g.slots}
@@ -485,7 +501,10 @@ class FeaturePlan:
         store param + optimizer slots fused in one f32 [rows, 128] matrix
         (ops/rowdma.py) — so init (B=1), train, eval and pred must all
         agree.  optim.sparse.plan_sparse_tables derives its table set from
-        this predicate; the two cannot drift.
+        this predicate; the two cannot drift.  The row's width is the
+        table's own (``fused_width``): [rows, 128] where the rule's live
+        columns fit 128, whole float4s past the live columns under
+        RowwiseAdagrad, which alone may pass 128.
 
         On multi-device plans (scatter_shards > 1) the batch carries
         PER-TABLE-SHARD compact plans (make_sharded_compact_plan) and the
@@ -495,10 +514,16 @@ class FeaturePlan:
             return False
         if self.scatter_shards > 1 and g.rows % self.scatter_shards:
             return False
-        from wide_deep_tpu_torch.ops.rowdma import FUSED_WIDTH
         from wide_deep_tpu_torch.optim import sparse as sparse_lib
         return (g.rows >= sparse_lib.SPARSE_MIN_ROWS
-                and (1 + self.sparse_slots) * g.dim <= FUSED_WIDTH)
+                and sparse_lib.fused_width(self.sparse_spec, g.dim)
+                is not None)
+
+    def fused_width(self, g: "DimGroup") -> int:
+        """float32 columns of group ``g``'s fused table (a group that
+        ``sparse_opt_group`` admits)."""
+        from wide_deep_tpu_torch.optim import sparse as sparse_lib
+        return sparse_lib.fused_width(self.sparse_spec, g.dim)
 
     def _plan_specs(self, g: "DimGroup", n_ids: int, batch_size: int):
         """(batch key prefix, spec) of each kernel plan a train batch
@@ -591,4 +616,8 @@ class FeaturePlan:
             "indicator_slots": [dataclasses.asdict(s) for s in self.indicator_slots],
             "continuous_slots": [dataclasses.asdict(s) for s in self.continuous_slots],
             "crosses": [dataclasses.asdict(c) for c in self.crosses],
+            # only where some feature sums: a plan without reads as the
+            # JAX package's does
+            **({"sum_pooled": sorted(self.sum_pooled)}
+               if self.sum_pooled else {}),
         }

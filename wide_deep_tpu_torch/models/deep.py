@@ -15,6 +15,14 @@ The port of wide_deep_tpu/models/deep.py on one device:
   (the step's "sinks"), never to a dense [rows, D] table gradient.
 * Towers: the five named connectivity modes plus ``i-j`` connection lists,
   masked train-mode BatchNorm with moving statistics, dropout.
+* DLRM's parts, where model.yaml asks for them: a bottom MLP over the
+  continuous block (``dnn_bottom_units``, ReLU after each layer), whose
+  output leads the input in place of the raw block, and the low-rank cross
+  network of DCN-V2 between the input and the towers (``dnn_interaction:
+  {type: dcn, layers, rank}``): ``x_{l+1} = x0 * (W_l (V_l x_l) + b_l) +
+  x_l``, V_l [rank, width] without bias, W_l [width, rank] with one.
+  Each feature pools its rows by the weights the loader gives them: 1/k
+  (the mean) or 1 (``combiner: sum``).
 * On a mesh of ranks (``shard``: the mesh and the row-sharded param paths,
   parallel/exchange.enable_explicit_lookup) every gather from a row-sharded
   table goes through the exchange (JAX ``table_gather``, deep.py:384-411
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from wide_deep_tpu_torch import tracing
 from wide_deep_tpu_torch.features.plan import FeaturePlan
 from wide_deep_tpu_torch.models.activations import activation_fn
 from wide_deep_tpu_torch.parallel import exchange
@@ -104,6 +113,8 @@ class DeepSpec:
     l2: float = 0.0
     dtype: Any = torch.float32
     embedding_dtype: Any = torch.float32
+    bottom_units: Tuple[int, ...] = ()          # MLP over the continuous block
+    cross: Optional[Tuple[int, int]] = None     # DCN cross: (layers, rank)
 
     @staticmethod
     def from_model_conf(model_conf: Dict[str, Any],
@@ -128,7 +139,10 @@ class DeepSpec:
             raise ValueError(
                 f"{len(towers_hidden)} towers but {len(modes)} connected modes")
         towers = tuple(TowerSpec(h, m) for h, m in zip(towers_hidden, modes))
+        inter = model_conf.get("dnn_interaction")
         return DeepSpec(
+            bottom_units=tuple(model_conf.get("dnn_bottom_units") or ()),
+            cross=((inter["layers"], inter["rank"]) if inter else None),
             towers=towers,
             activation=model_conf.get("dnn_activation_function", "relu"),
             dropout=float(model_conf.get("dnn_dropout") or 0.0),
@@ -367,8 +381,13 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
                      dtype=torch.float32, embedding_dtype=torch.float32,
                      fold_params: Optional[Dict[str, torch.Tensor]] = None,
                      sinks: Optional[Dict[str, torch.Tensor]] = None,
-                     shard=None):
-    """Packed batch -> ([B, deep_input_dim] dense input, fold_wide | None).
+                     shard=None, bottom_units: Sequence[int] = ()):
+    """Packed batch -> ([B, width] dense input, fold_wide | None): the
+    pooled embeddings (dim groups ascending, features in config order),
+    the indicator block, the continuous block; with ``bottom_units`` the
+    bottom MLP's output over the continuous block leads in its place
+    (DLRM's ``x0``).  The gathers and the pooling are span
+    ``train.forward.embed``.
 
     ``sinks``: when a dict, the rows gathered for the groups it names
     (``d<dim>`` keys: the step's sparse tables with a compact plan in the
@@ -381,6 +400,31 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
     None."""
     mesh, sharded = shard if shard is not None else (None, frozenset())
     parts = []
+    with tracing.span("train.forward.embed", batch["mask"].device):
+        fold_wide = _embed_groups(store, plan, batch, parts, dtype,
+                                  embedding_dtype, fold_params, sinks,
+                                  mesh, sharded)
+    if consts.indicator_dim:
+        ind = batch.get("_ind_block")
+        if ind is None:
+            ind = indicator_block(batch, consts.indicator_dim, dtype)
+        parts.append(ind.to(dtype))
+    if consts.n_continuous:
+        cont = batch["cont"].to(dtype)
+        if bottom_units:
+            for j, units in enumerate(bottom_units):
+                cont = torch.relu(_dense(store, ("bottom", j), cont, units,
+                                         dtype))
+            parts.insert(0, cont)
+        else:
+            parts.append(cont)
+    return torch.cat(parts, dim=-1), fold_wide
+
+
+def _embed_groups(store, plan, batch, parts, dtype, embedding_dtype,
+                  fold_params, sinks, mesh, sharded):
+    """Each dim group's gather and per-feature pooling, appended to
+    ``parts`` as [B, F * dim] -> the fold's wide sum, or None."""
     B = batch["mask"].shape[0]
     fold_wide = None
     for g in plan.groups:
@@ -390,20 +434,19 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
         P = ids2.shape[1]
         ids = ids2.reshape(-1)
         if plan.sparse_opt_group(g, B):
-            from wide_deep_tpu_torch.ops.rowdma import FUSED_WIDTH
-
             def fused_init(gen, shape, device, _d=g.dim):
                 t = torch.zeros(shape, dtype=torch.float32, device=device)
                 embedding_init_(gen, t[:, :_d])
                 return t
 
-            table = store.get(("embed", f"d{g.dim}"), (g.rows, FUSED_WIDTH),
-                              fused_init)
+            table = store.get(("embed", f"d{g.dim}"),
+                              (g.rows, plan.fused_width(g)), fused_init)
             if ("dnn", "embed", f"d{g.dim}") in sharded:
                 rows = exchange.gather_rows_nograd(
                     table.detach()[:, :g.dim], ids, mesh)
             else:
-                rows = table.detach().index_select(0, ids)[:, :g.dim]
+                # the param columns alone: a row's slots are not read
+                rows = table.detach()[:, :g.dim].index_select(0, ids)
             gathered = rows.to(embedding_dtype)
         else:
             def emb_init(gen, shape, device):
@@ -450,14 +493,8 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
         onehot = F.one_hot(seg.long(), len(g.slots)).float()
         combined = torch.einsum("blf,bld->bfd", onehot, weighted)
         parts.append(combined.reshape(B, -1).to(dtype))
-    if consts.indicator_dim:
-        ind = batch.get("_ind_block")
-        if ind is None:
-            ind = indicator_block(batch, consts.indicator_dim, dtype)
-        parts.append(ind.to(dtype))
-    if consts.n_continuous:
-        parts.append(batch["cont"].to(dtype))
-    return torch.cat(parts, dim=-1), fold_wide
+        tracing.count("embed.pooled_ids", B * P)
+    return fold_wide
 
 
 def dedup_plan_of(batch, dim: int):
@@ -496,14 +533,35 @@ def _sharded_gather(mesh, table, ids, plan, fcol, detach: bool,
 
 
 # ------------------------------------------------------------------- towers
-def _dense(store: ParamStore, path, x, units, dtype):
+def _dense(store: ParamStore, path, x, units, dtype, bias: bool = True):
     kernel = store.get(tuple(path) + ("kernel",), (x.shape[-1], units),
                        glorot_uniform)
-    bias = store.get(tuple(path) + ("bias",), (units,), zeros_init)
     # products of `dtype`-rounded operands summed in float32 (the JAX
     # package's preferred_element_type); TF32 is off (set_parity_precision)
-    y = torch.matmul(x.to(dtype).float(), kernel.to(dtype).float()) + bias
+    y = torch.matmul(x.to(dtype).float(), kernel.to(dtype).float())
+    if bias:
+        y = y + store.get(tuple(path) + ("bias",), (units,), zeros_init)
     return y.to(dtype)
+
+
+def cross_network(store: ParamStore, x0: torch.Tensor, layers: int,
+                  rank: int, dtype) -> torch.Tensor:
+    """DCN-V2's low-rank cross network over ``x0`` [B, width]:
+    ``x_{l+1} = x0 * (W_l (V_l x_l) + b_l) + x_l`` for l < ``layers``,
+    params ``cross/<l>/down/kernel`` (V_l^T, [width, rank], no bias) and
+    ``cross/<l>/up/{kernel,bias}`` (W_l^T, [rank, width]).  Each product
+    is ``_dense``'s (``dtype``-rounded operands summed in float32, the
+    output rounded to ``dtype``); the products with x0 and the residual
+    sums are float32, the result rounded to ``dtype`` once."""
+    width = x0.shape[-1]
+    x0f = x0.float()
+    x = x0f
+    for layer in range(layers):
+        u = _dense(store, ("cross", layer, "down"), x, rank, dtype,
+                   bias=False)
+        v = _dense(store, ("cross", layer, "up"), u, width, dtype)
+        x = x0f * v.float() + x
+    return x.to(dtype)
 
 
 def _batch_norm(store: ParamStore, state: Optional[Dict], new_state: Dict,
@@ -629,7 +687,11 @@ def deep_logits(store: ParamStore, plan: FeaturePlan, consts: PlanConstants,
     fold_wide | None); ``shard`` as deep_input_layer takes it."""
     x, fold_wide = deep_input_layer(store, plan, consts, batch, spec.dtype,
                                     spec.embedding_dtype, fold_params, sinks,
-                                    shard)
+                                    shard, spec.bottom_units)
+    if spec.cross is not None:
+        with tracing.span("train.forward.cross", x.device):
+            x = cross_network(store, x, spec.cross[0], spec.cross[1],
+                              spec.dtype)
     mesh = shard[0] if shard is not None else None
     new_bn_state: Dict = {}
     logits = None

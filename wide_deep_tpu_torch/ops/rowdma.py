@@ -3,15 +3,19 @@
 **K3** ``rowdma_scatter_rows`` replaces
 wide_deep_tpu/ops/rowdma.py::rowdma_scatter_rows, the Pallas
 kernel that writes the fused sparse optimizer's updated rows back with one
-DMA per row.  The port's kernel (csrc/rowdma.cu) gives each uid one warp
-whose 32 lanes move one float4 each: one 512-byte row per warp, read and
-written coalesced.  It is bound by bytes on the card (each touched row read
-once and written once).
+DMA per row.  The port's kernel (csrc/rowdma.cu) gives each float4 of the
+rows one thread, in row order: a 128-wide row is one warp whose 32 lanes
+move one float4 each, one 512-byte row per warp, read and written
+coalesced.  It is bound by bytes on the card (each touched row read once
+and written once).
 
 The [rows, 128] float32 layout (param + optimizer slots side by side, zero
 padding after them) is the JAX package's, forced there by the TPU's DMA
-engine; the port keeps it so the parameter trees of the two packages match
-leaf by leaf.
+engine; the port keeps it for every table whose live columns fit 128, so
+the parameter trees of the two packages match leaf by leaf.  A
+RowwiseAdagrad table, which the JAX package has not, takes its own width,
+its live columns rounded up to whole float4s (optim/sparse.fused_width);
+K3 takes any width that is a multiple of 4.
 
 **P2** ``bulk_scatter_rows`` replaces the Pallas probe
 tools/microbench_rowdma_scatter.py::kernel_scatter (one HBM->HBM row DMA
@@ -39,12 +43,14 @@ import torch
 from wide_deep_tpu_torch.ops import cuda_build
 
 FUSED_WIDTH = 128   # float32 columns of a fused sparse-optimizer table
+                    # whose live columns fit it (optim/sparse.fused_width)
 BULK_ROW_ALIGN = 16         # bytes: the bulk-copy unit's size and address unit
 BULK_MAX_ROW_BYTES = 7168   # two rows in a warp's 16 KB slab
                             # (csrc/bulk_row_scatter.cu kMaxRowBytes, which
                             # kernel_bulk_max_row_bytes reads)
 
 rowdma_launches = 0
+rowdma_launches_by_width: dict = {}     # K3's launches by row width
 bulk_scatter_launches = 0
 
 
@@ -61,25 +67,31 @@ def _lib():
     fn = cuda_build.library("rowdma").wdt_rowdma_scatter_rows
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, ctypes.c_int, p]
+        fn.argtypes = [p, ctypes.c_longlong, p, p, ctypes.c_int,
+                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def rowdma_scatter_rows(table: torch.Tensor, uids: torch.Tensor,
                         new_rows: torch.Tensor) -> torch.Tensor:
-    """Write ``new_rows`` [N, 128] float32 into ``table`` [R, 128] float32
-    at ``uids`` [N] int32 (sorted unique; out-of-range entries skipped), in
-    place; returns ``table``.  CUDA tensors launch csrc/rowdma.cu on the
-    current stream."""
+    """Write ``new_rows`` [N, W] float32 into ``table`` [R, W] float32 at
+    ``uids`` [N] int32 (sorted unique; out-of-range entries skipped), in
+    place, for a width W that is a multiple of 4 (128 for every table but
+    a RowwiseAdagrad one); returns ``table``.  CUDA tensors launch
+    csrc/rowdma.cu on the current stream."""
     global rowdma_launches
     dev = table.device
+    width = table.shape[1] if table.dim() == 2 else 0
+    if width <= 0 or width % 4:
+        raise ValueError(f"table must be [R, W] with W a positive multiple "
+                         f"of 4, got {tuple(table.shape)}")
     for name, t in (("table", table), ("new_rows", new_rows)):
-        if (t.dim() != 2 or t.shape[1] != FUSED_WIDTH
+        if (t.dim() != 2 or t.shape[1] != width
                 or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != dev):
             raise ValueError(f"{name} must be a contiguous float32 "
-                             f"[*, {FUSED_WIDTH}] tensor on {dev}")
+                             f"[*, {width}] tensor on {dev}")
     n = new_rows.shape[0]
     if (uids.dtype != torch.int32 or uids.shape != (n,)
             or not uids.is_contiguous() or uids.device != dev):
@@ -89,9 +101,12 @@ def rowdma_scatter_rows(table: torch.Tensor, uids: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"rowdma_scatter_rows: unsupported device {dev}")
     err = _lib()(table.data_ptr(), table.shape[0], uids.data_ptr(),
-                 new_rows.data_ptr(), n, cuda_build.stream_handle(dev))
+                 new_rows.data_ptr(), n, width,
+                 cuda_build.stream_handle(dev))
     cuda_build.check(err, "rowdma_scatter_rows")
     rowdma_launches += 1
+    rowdma_launches_by_width[width] = (
+        rowdma_launches_by_width.get(width, 0) + 1)
     return table
 
 

@@ -248,7 +248,7 @@ def make_compact_plan(ids_flat: np.ndarray, rows: int):
 # ------------------------------------------------- per-table-shard plans
 # The port's copies of wide_deep_tpu/ops/scatter.py:617-688 (compact) and
 # :783-951 (range, window), bit-identical to them (tests/
-# test_torch_exchange.py) and to what cpp/fastdata.cc emits for a plan with
+# test_torch_exchange.py) and to what csrc/fastdata.cc emits for a plan with
 # scatter_shards > 1 (tests/test_torch_parallel.py).
 # Each rank of a sharded run takes the row of its own table shard
 # (parallel/exchange.py, optim/sparse.apply_fused_sharded_update).
@@ -259,7 +259,7 @@ SHARD_LIVE_DEN = 4
 
 def shard_cap(n_ids: int, n_shards: int) -> int:
     """Static per-shard stream length: SHARD_SLACK x the even split,
-    ALIGN_IDS-aligned, never above n_ids.  MUST match cpp/fastdata.cc
+    ALIGN_IDS-aligned, never above n_ids.  MUST match csrc/fastdata.cc
     shard_cap (parity test enforces)."""
     cap = (n_ids * SHARD_SLACK + n_shards - 1) // n_shards
     cap = ((cap + ALIGN_IDS - 1) // ALIGN_IDS) * ALIGN_IDS

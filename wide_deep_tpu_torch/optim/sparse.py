@@ -3,9 +3,14 @@ wide_deep_tpu/optim/sparse.py's single-device paths).
 
 Eligible tables (``plan.sparse_opt_group``: unfolded groups of at least
 SPARSE_MIN_ROWS rows; production: the 10,000,128-row d32 table) store the
-param and its optimizer slots side by side in one float32 [rows, 128]
+param and its optimizer slots side by side in one float32 [rows, width]
 matrix: param in columns [0, dim), the Adagrad accumulator in [dim, 2*dim)
-initialised to 0.1, zero padding after.  They are left out of the dense
+initialised to 0.1, zero padding after.  The width is the table's own
+(``fused_width``): 128 for every rule whose live columns fit 128, and for
+RowwiseAdagrad (one accumulator column a row, after the param) its live
+columns rounded up to whole float4s (a d128 table: 129 -> 132).  The
+table's rule is model.yaml's ``dnn_embedding_optimizer`` where set, else
+``dnn_optimizer`` (``table_spec``).  They are left out of the dense
 optimizer.  Each step, per table (``apply_fused_update``):
 
 1. K1 (ops/scatter.range_scatter_add) sums the per-entry gradients of the
@@ -34,6 +39,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from wide_deep_tpu_torch import tracing
 from wide_deep_tpu_torch.optim import (Schedule, _on, _rsqrt, _sqrt,
                                       exponential_decay, tree_get, tree_set)
 
@@ -42,7 +48,13 @@ from wide_deep_tpu_torch.optim import (Schedule, _on, _rsqrt, _sqrt,
 PLAN_KEYS = ("uids", "ids", "perm", "tiles")
 
 SPARSE_MIN_ROWS = 1 << 22      # smaller tables sweep densely
-SPARSE_CAPABLE = ("Adagrad", "ProximalAdagrad", "Ftrl", "SGD")
+SPARSE_CAPABLE = ("Adagrad", "ProximalAdagrad", "Ftrl", "SGD",
+                  "RowwiseAdagrad")
+# the unit a RowwiseAdagrad table's row width is rounded up to: one float4,
+# what K3 moves a lane at a time (csrc/rowdma.cu; the choice is measured in
+# PERF.md)
+FUSED_ALIGN = 4
+ROWWISE_EPS = 1e-7      # inside the root, as the port's Adagrad has it
 _SLOT_KEYS = ("accum", "linear")
 
 
@@ -56,7 +68,7 @@ class SparseTable:
     spec: Dict[str, Any]           # optimizer spec
     lr: Union[Schedule, float]     # a schedule, or a constant rate
     dim: int = 0                   # embedding columns
-    fused: bool = False            # param stored as float32 [rows, 128]
+    fused: bool = False            # param stored as float32 [rows, width]
     sink_dtype: Any = None         # dtype of the gathered-rows gradient
 
 
@@ -66,14 +78,44 @@ def _lr_at(lr, count: int) -> torch.Tensor:
 
 
 def _n_slots(spec: Dict[str, Any]) -> int:
-    return {"SGD": 0, "Adagrad": 1, "ProximalAdagrad": 1, "Ftrl": 2}[
-        spec["name"]]
+    return {"SGD": 0, "Adagrad": 1, "ProximalAdagrad": 1, "Ftrl": 2,
+            "RowwiseAdagrad": 1}[spec["name"]]
+
+
+def slot_width(spec: Dict[str, Any], dim: int) -> int:
+    """Columns of each optimizer slot of a ``dim``-wide table: one a row
+    under RowwiseAdagrad, else ``dim``."""
+    return 1 if spec["name"] == "RowwiseAdagrad" else dim
+
+
+def table_spec(model_conf: Dict[str, Any]) -> Dict[str, Any]:
+    """The fused tables' optimizer: ``dnn_embedding_optimizer`` where set,
+    else ``dnn_optimizer``."""
+    return (model_conf.get("dnn_embedding_optimizer")
+            or model_conf["dnn_optimizer"])
 
 
 def fused_layout(spec: Dict[str, Any], dim: int) -> Dict[str, int]:
-    """Column offsets of the optimizer slots inside a fused table."""
+    """Column offsets of the optimizer slots inside a fused table (each
+    ``slot_width`` wide)."""
     names = _SLOT_KEYS[:_n_slots(spec)]
-    return {k: (i + 1) * dim for i, k in enumerate(names)}
+    sw = slot_width(spec, dim)
+    return {k: dim + i * sw for i, k in enumerate(names)}
+
+
+def fused_width(spec: Optional[Dict[str, Any]], dim: int) -> Optional[int]:
+    """float32 columns of a fused ``dim``-wide table under ``spec``: 128
+    (ops/rowdma.FUSED_WIDTH, the JAX package's layout) where the live
+    columns fit it; under RowwiseAdagrad the live columns rounded up to
+    whole float4s; None where the rule's row fits neither (the table is
+    not fused)."""
+    from wide_deep_tpu_torch.ops.rowdma import FUSED_WIDTH
+    if spec is None or spec["name"] not in SPARSE_CAPABLE:
+        return None
+    live = fused_live_width(spec, dim)
+    if spec["name"] == "RowwiseAdagrad":
+        return -(-live // FUSED_ALIGN) * FUSED_ALIGN
+    return FUSED_WIDTH if live <= FUSED_WIDTH else None
 
 
 def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
@@ -82,7 +124,7 @@ def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
     """Tables the fused optimizer owns -> ({name: SparseTable}, paths).
     Derived from ``plan.sparse_opt_group``, the predicate that also picks
     the fused param layout, so routing and shapes cannot drift."""
-    spec = model_conf["dnn_optimizer"]
+    spec = table_spec(model_conf)
     if not enabled or spec["name"] not in SPARSE_CAPABLE:
         return {}, frozenset()
     from wide_deep_tpu_torch.models.deep import DTYPES
@@ -102,10 +144,10 @@ def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
 
 
 def fused_live_width(spec: Dict[str, Any], dim: int) -> int:
-    """Columns of a fused [rows, FUSED_WIDTH] table that carry data (param
-    + optimizer slots); the columns past them are zero padding to the row
+    """Columns of a fused table that carry data (param + optimizer slots);
+    the columns past them, to ``fused_width``, are zero padding to the row
     width K3 writes (ops/rowdma.py)."""
-    return (1 + _n_slots(spec)) * dim
+    return dim + _n_slots(spec) * slot_width(spec, dim)
 
 
 def compact_fused_ckpt(params, sparse_tables: Dict[str, SparseTable]):
@@ -171,11 +213,12 @@ def init_fused_params(params, sparse_tables: Dict[str, SparseTable]):
     (the model creates them zero), in place."""
     for t in (sparse_tables or {}).values():
         p = tree_get(params, t.path)
+        sw = slot_width(t.spec, t.dim)
         for key, off in fused_layout(t.spec, t.dim).items():
             val = (t.spec.get("initial_accumulator_value", 0.1)
                    if key == "accum" else 0.0)
             if val:
-                p[:, off:off + t.dim] = val
+                p[:, off:off + sw] = val
     return params
 
 
@@ -193,6 +236,17 @@ def _row_update(spec: Dict[str, Any], lr, w: torch.Tensor, g: torch.Tensor,
     elif name == "Adagrad":
         n2 = slots["accum"] + g * g
         w_new = w - lr * g * _rsqrt(n2 + 1e-7)
+        new_slots["accum"] = n2
+    elif name == "RowwiseAdagrad":
+        # the port's Adagrad with one accumulator a row, which takes the
+        # row's mean squared gradient: a_r += mean_j g_rj^2, w_r -= lr g_r /
+        # sqrt(a_r + 1e-7).  The mean is summed in float64 (the float32
+        # squares add exactly there up to its rounding) and rounded once,
+        # so the card's rows get the host's bits, whatever order each
+        # sums in
+        sq = g.double().square().sum(dim=-1, keepdim=True)
+        n2 = slots["accum"] + (sq / g.shape[-1]).float()
+        w_new = w - lr * g * _rsqrt(n2 + ROWWISE_EPS)
         new_slots["accum"] = n2
     elif name == "ProximalAdagrad":
         l1 = spec.get("l1_regularization_strength", 0.0)
@@ -226,37 +280,66 @@ def _row_update(spec: Dict[str, Any], lr, w: torch.Tensor, g: torch.Tensor,
     return w_new, new_slots
 
 
+def _fused_rows(spec: Dict[str, Any], lr, full: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    """Fused rows ``full`` [N, width] after one step of ``spec`` with the
+    summed gradient ``g`` [N, dim]: the param and slot columns computed by
+    ``_row_update``, the padding columns as they were."""
+    d = g.shape[1]
+    sw = slot_width(spec, d)
+    layout = fused_layout(spec, d)
+    slots = {k: full[:, off:off + sw] for k, off in layout.items()}
+    w_new, new_rows = _row_update(spec, lr, full[:, :d], g, slots)
+    used = fused_live_width(spec, d)
+    return torch.cat(
+        [w_new] + [new_rows[k] for k in _SLOT_KEYS if k in new_rows]
+        + [full[:, used:]], dim=1).contiguous()
+
+
+def compact_live(batch) -> Dict[str, int]:
+    """{"d<dim>": the distinct rows of the group's single-device compact
+    plan (``sopt_ids_d<dim>``'s last rank plus one)} of a batch of numpy
+    arrays or tensors, counted as ``sparse.touched_rows``.  The Trainer
+    reads it from the host batch when it packs one
+    (``training/loop.TensorBatch``); read from a card tensor it waits for
+    the card."""
+    out = {}
+    for key, v in batch.items():
+        if key.startswith("sopt_ids_d") and v.ndim == 1:
+            out[key[len("sopt_ids_"):]] = live = (int(v[-1]) + 1 if len(v)
+                                                  else 0)
+            tracing.count("sparse.touched_rows", live)
+    return out
+
+
 @torch.no_grad()
 def apply_fused_update(table: SparseTable, fused: torch.Tensor,
                        row_grads: torch.Tensor,
                        plan: Dict[str, torch.Tensor],
                        state: Dict[str, Any]) -> torch.Tensor:
-    """Touched-rows update of a fused [rows, 128] table, in place.
+    """Touched-rows update of a fused [rows, width] table, in place.
 
     ``row_grads`` [N, dim] is the gradient of the rows the forward gathered
     (one per pool entry); ``plan`` the batch's compact plan {uids, ids,
-    perm, tiles}.  K1 sums duplicates into one float32 row per unique id,
-    the formula runs on the gathered rows, K3 writes them back; padding
-    columns are written back unchanged."""
+    perm, tiles} and ``live``, its distinct rows (an int:
+    ``compact_live``).  K1 sums duplicates into one float32 row per unique
+    id (from the gradient in its own dtype: the same float32 sums), the
+    formula runs on the gathered rows, K3 writes them back; padding
+    columns are written back unchanged.  The plan's rows past ``live``, its
+    sentinels, are neither summed into, gathered, computed nor passed to
+    K3."""
     from wide_deep_tpu_torch.ops.rowdma import rowdma_scatter_rows
     from wide_deep_tpu_torch.ops.scatter import range_scatter_add
     lr = _lr_at(table.lr, state["count"])
-    n, d = row_grads.shape
+    live = int(plan["live"])
     g_unique = range_scatter_add(plan["ids"], plan["perm"],
-                                 row_grads.float().contiguous(),
-                                 plan["tiles"], n, torch.float32)
-    uids = plan["uids"]
+                                 row_grads.contiguous(), plan["tiles"], live,
+                                 torch.float32)
+    uids = plan["uids"][:live]
     safe = torch.clamp(uids, 0, fused.shape[0] - 1)
     full = fused.index_select(0, safe)
-    layout = fused_layout(table.spec, d)
-    w = full[:, :d]
-    slots = {k: full[:, off:off + d] for k, off in layout.items()}
-    w_new, new_rows = _row_update(table.spec, lr, w, g_unique, slots)
-    used = (1 + len(layout)) * d
-    new_full = torch.cat(
-        [w_new] + [new_rows[k] for k in _SLOT_KEYS if k in new_rows]
-        + [full[:, used:]], dim=1).contiguous()
-    rowdma_scatter_rows(fused, uids, new_full)
+    rowdma_scatter_rows(fused, uids, _fused_rows(table.spec, lr, full,
+                                                 g_unique))
     state["count"] += 1
     return fused
 
@@ -285,22 +368,14 @@ def apply_fused_sharded_update(table: SparseTable, fused: torch.Tensor,
     from wide_deep_tpu_torch.parallel import exchange
     from wide_deep_tpu_torch.parallel import mesh as mesh_lib
     lr = _lr_at(table.lr, state["count"])
-    d = row_grads.shape[1]
     shard_rows = fused.shape[0]
     g_all = mesh_lib.all_gather(row_grads.float().contiguous(),
                                 mesh.data_group, "sparse_update")
     ids_all = mesh_lib.all_gather(ids.reshape(-1).int().contiguous(),
                                   mesh.data_group, "sparse_update")
-    layout = fused_layout(table.spec, d)
-    used = (1 + len(layout)) * d
 
     def formula(full, g):
-        w = full[:, :d]
-        slots = {k: full[:, off:off + d] for k, off in layout.items()}
-        w_new, new_rows = _row_update(table.spec, lr, w, g, slots)
-        return torch.cat(
-            [w_new] + [new_rows[k] for k in _SLOT_KEYS if k in new_rows]
-            + [full[:, used:]], dim=1).contiguous()
+        return _fused_rows(table.spec, lr, full, g)
 
     if int(plan["ok"]):
         cap = plan["ids"].shape[-1]

@@ -182,6 +182,8 @@ def _kernel_counters() -> Dict[str, int]:
                 for d, n in scatter.range_launches_by_width().items()})
     out.update({f"kernels.rowdma.{k}": getattr(rowdma, k)
                 for k in ("rowdma_launches", "bulk_scatter_launches")})
+    out.update({f"kernels.rowdma.rowdma_launches.w{w}": n
+                for w, n in rowdma.rowdma_launches_by_width.items()})
     return out
 
 

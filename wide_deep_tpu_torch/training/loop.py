@@ -50,7 +50,7 @@ import torch.distributed as dist
 
 from wide_deep_tpu_torch import metrics as metrics_lib
 from wide_deep_tpu_torch import tracing
-from wide_deep_tpu_torch.config import Config
+from wide_deep_tpu_torch.config import Config, ConfigError
 from wide_deep_tpu_torch.features.pipeline import (CsvDataset,
                                                    DevicePrefetchIterator,
                                                    PrefetchIterator,
@@ -172,15 +172,28 @@ def unpack(buf: torch.Tensor, batch: Dict[str, np.ndarray],
     return out
 
 
-class DeviceBatch(dict):
+class TensorBatch(dict):
+    """A batch's tensors, and ``compact_live``: {"d<dim>": the distinct
+    rows of the group's single-device compact plan}, read on the host when
+    the batch was made (``optim/sparse.compact_live``), so that the fused
+    update reads them without a device sync."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor],
+                 compact_live: Dict[str, int]):
+        super().__init__(tensors)
+        self.compact_live = compact_live
+
+
+class DeviceBatch(TensorBatch):
     """A batch on the card: views of one device buffer, filled by one copy
     on a side stream that records ``ready``.  ``claim`` makes the current
     stream wait for the copy and keeps the buffer alive until that stream's
     work on it is done."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor],
-                 buffer: torch.Tensor, ready: torch.cuda.Event):
-        super().__init__(tensors)
+                 buffer: torch.Tensor, ready: torch.cuda.Event,
+                 compact_live: Dict[str, int]):
+        super().__init__(tensors, compact_live)
         self.buffer = buffer
         self.ready = ready
 
@@ -199,9 +212,10 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
     PyTorch's caching host allocator, which records the copy on it and
     hands its memory out again only once the copy is done, so a caller may
     pack the next batch at once.  Spans ``input.h2d`` (pack and copy) and
-    ``input.h2d.copy`` (the copy, on ``stream``); counter
-    ``input.h2d_bytes``."""
+    ``input.h2d.copy`` (the copy, on ``stream``); counters
+    ``input.h2d_bytes`` and ``sparse.touched_rows`` (``compact_live``)."""
     offsets, n = pack_layout(batch)
+    live = sparse_lib.compact_live(batch)
     with torch.cuda.device(device), tracing.span("input.h2d"):
         host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         pack_into(host.numpy(), batch, offsets)
@@ -212,7 +226,7 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
             ready = torch.cuda.Event()
             ready.record(stream)
         tracing.count("input.h2d_bytes", n)
-    return DeviceBatch(unpack(buf, batch, offsets), buf, ready)
+    return DeviceBatch(unpack(buf, batch, offsets), buf, ready, live)
 
 
 class Trainer:
@@ -269,6 +283,16 @@ class Trainer:
                 self.plan, self.config.model, decay_steps, self.batch_size,
                 enabled=self.plan.sparse_opt)
             if self.model.has_deep else ({}, frozenset()))
+        unfused = [g.dim for g in self.plan.groups
+                   if f"dnn.embed.d{g.dim}" not in self.sparse_tables]
+        if ("dnn_embedding_optimizer" in self.config.model
+                and self.model.has_deep and unfused):
+            raise ConfigError(
+                f"model.yaml: dnn_embedding_optimizer is the rule of the "
+                f"fused touched-rows tables, and the dim groups {unfused} "
+                f"are not fused (train.yaml sparse_optimizer: true, "
+                f"scatter_mode: pallas, at least "
+                f"{sparse_lib.SPARSE_MIN_ROWS} rows a group)")
         self.tx = build_joint_optimizer(
             self.config.model, decay_steps,
             arms={"linear": self.model.has_wide,
@@ -433,9 +457,12 @@ class Trainer:
         (``pack_layout``) and sent by one copy on a side stream; the result
         is a DeviceBatch whose ``claim`` orders the consumer's stream after
         the copy.  Safe to call from a prefetch thread.  On the CPU: views
-        of the numpy arrays."""
+        of the numpy arrays.  Either way the compact plans' live counts
+        ride along (``TensorBatch.compact_live``)."""
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in batch.items()}
+            return TensorBatch({k: torch.from_numpy(v)
+                                for k, v in batch.items()},
+                               sparse_lib.compact_live(batch))
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         return to_device(batch, self.device, self._copy_stream)

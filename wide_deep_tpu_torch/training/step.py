@@ -60,7 +60,8 @@ def init_opt_state(tx: JointOptimizer, params,
 
 def _apply_pending(sparse_tables, params, opt_state) -> None:
     """Apply each fused table's pending update (``opt_state
-    ["sparse_pending"][name]``: its gradient rows ``rg`` and plan)."""
+    ["sparse_pending"][name]``: its gradient rows ``rg`` and plan, with the
+    plan's distinct rows ``live``)."""
     pending = opt_state["sparse_pending"]
     for name, t in sparse_tables.items():
         if not t.fused:
@@ -68,7 +69,16 @@ def _apply_pending(sparse_tables, params, opt_state) -> None:
         p = pending[name]
         sparse_lib.apply_fused_update(
             t, tree_get(params, t.path), p["rg"],
-            {k: p[k] for k in PLAN_KEYS}, opt_state["sparse"][name])
+            {k: p[k] for k in (*PLAN_KEYS, "live")},
+            opt_state["sparse"][name])
+
+
+def _compact_lives(batch) -> Dict[str, int]:
+    """The batch's compact plans' distinct rows by group key: read when
+    the Trainer made it (``TensorBatch``), else from its plans
+    (``optim/sparse.compact_live``)."""
+    lives = getattr(batch, "compact_live", None)
+    return sparse_lib.compact_live(batch) if lives is None else lives
 
 
 def train_step(model: WideDeep, tx: JointOptimizer, params, mstate,
@@ -133,13 +143,15 @@ def _update_tables(sparse_tables, compact, params, opt_state, batch,
                    dense_grads, sink_grads, mesh, defer_sparse) -> None:
     """The touched-rows update of each sparse table, in place; under
     ``defer_sparse``, this step's update left pending instead."""
+    lives = _compact_lives(batch) if compact else {}
     if defer_sparse:
         # this step's update waits for the next step; its plan is cloned,
         # since the batch's device buffer is handed out again
         opt_state["sparse_pending"] = {
             name: {"rg": sink_grads[t.path[-1]],
                    **{k: batch[f"sopt_{k}_{t.path[-1]}"].clone()
-                      for k in PLAN_KEYS}}
+                      for k in PLAN_KEYS},
+                   "live": lives[t.path[-1]]}
             for name, t in sparse_tables.items()}
         return
     for name, t in sparse_tables.items():
@@ -156,6 +168,7 @@ def _update_tables(sparse_tables, compact, params, opt_state, batch,
                 plan_row(batch, "sopt", t.dim), st, mesh)
         elif name in compact:
             plan = {k: batch[f"sopt_{k}_{key}"] for k in PLAN_KEYS}
+            plan["live"] = lives[key]
             apply = (sparse_lib.apply_fused_update if t.fused
                      else sparse_lib.apply_compact_update)
             apply(t, param, sink_grads[key], plan, st)
@@ -203,6 +216,7 @@ def seed_pending(sparse_tables: Dict[str, Any], opt_state,
     from a fresh initialisation), since applying the seed ticks it; step k's
     gradients then apply at the count an immediate run applies them at."""
     opt_state["sparse_pending"] = {}
+    lives = _compact_lives(batch)
     for name, t in sparse_tables.items():
         key = t.path[-1]
         opt_state["sparse"][name]["count"] -= 1
@@ -210,7 +224,8 @@ def seed_pending(sparse_tables: Dict[str, Any], opt_state,
             "rg": torch.zeros((batch[t.ids_key].numel(), t.dim),
                               dtype=t.sink_dtype,
                               device=batch[t.ids_key].device),
-            **{k: batch[f"sopt_{k}_{key}"].clone() for k in PLAN_KEYS}}
+            **{k: batch[f"sopt_{k}_{key}"].clone() for k in PLAN_KEYS},
+            "live": lives[key]}
 
 
 @torch.no_grad()
