@@ -39,7 +39,9 @@ each on stdout:
    each read on its own,
    must launch K1 once at each of its four sites (d8, d4, d32 compact,
    wide) and K2 and K3 once each, except that a file batch whose d16 plan says ok=0
-   launches K1 on the d16 stream in K2's place (its line says so); losses
+   launches K1 on the d16 stream in K2's place (its line says so), and the
+   sweep kernel once a dense leaf under Ftrl and under Adagrad
+   (``sweep_leaves``, both non-zero); losses
    and params must stay finite, touched d32 rows must change and an
    untouched one not;
    then (2c, after the launch counts are read) torch.profiler over 3 more
@@ -112,7 +114,7 @@ each on stdout:
       (FTRL on the wide table and ``v``, Adagrad on the rest, the fused d32
       rows) replayed on the host: 0 ulp apart (``recorded_update``; K1 at
       the ``v`` site is phase 1's ``k1_fm_row``); a step's device time
-      from a profiler window and the FTRL sweep over ``v`` alone;
+      from a profiler window;
    b. ``OPTIMIZER_CONFIGS``: conf/ as shipped (FTRL on the wide table and
       the fold columns, Adagrad on the rest, the fused Adagrad d32 rows),
       ProximalAdagrad on both arms, FTRL on both arms (the fused FTRL
@@ -121,7 +123,9 @@ each on stdout:
       Momentum (not sparse-capable) and 1 for the rest; step 0's update on
       the card against the same update replayed on the host, the worst ulp
       by leaf printed, each 0 (leaves above ``RECORD_MAX_NUMEL``
-      elements, the dense d32 table of the three, are not copied);
+      elements, the dense d32 table of the three, are not copied); in 8a
+      and 8b every synthetic step launches the sweep kernel once a dense
+      leaf under Ftrl or Adagrad (``sweep_leaves``);
    c. the production config: ``serve_file`` on 127.0.0.1 port 0 with a
       generated TSV of 51,200 rows, ``Trainer.train_stream(max_batches=2)``:
       each step launches what a file step does, and the same two batches,
@@ -132,6 +136,12 @@ each on stdout:
       ``flush_step`` from one state and batches: losses, params, BN and
       optimizer state and every count bit for bit; then
       ``tools.experiment_defer_sparse.main``'s line;
+   e. (after a) the sweep kernel (csrc/optim_sweep.cu) at the cells'
+      largest dense leaves (``SWEEP_ROWS``: FTRL over [12,715,008, 8] and
+      [10,000,640, 1] float32, Adagrad over [1,500,160, 17] bfloat16): the
+      eager chain's bits on the card from one state, then each one's time
+      by CUDA events and on the device beside the bound;
+   (``chip_smoke.py --only optim`` runs 8a, 8e and 8b alone;)
 9. quality on the card: ``tools.quality_onchip`` part B in-process (wide,
    deep and wide_deep on the production config, 5 epochs over data/train
    at batch 64, each Trainer freed before the next) holding
@@ -227,11 +237,14 @@ each on stdout:
     timed as a phase 1 row; then the port's Trainer on a small DCN conf
     (``DCN_SMALL``, its tables fused at any size) for 3 steps on the card
     and on the host from one state: every step launches K1 once at d128
-    and K3 once at width 132, the card's losses and state within
+    and K3 once at width 132 and the sweep kernel once a dense Adagrad
+    leaf, the card's losses and state within
     ``DCN_TOL`` of the host's, and the step's ms by CUDA events;
 then one JSON line describing the kernels (with each row's launches on the
 CLI path, on the CNN path and, by rank, on the sharded path and the dedup
-path; the dedup slot sums have rows of their own), and the device line.
+path; the dedup slot sums have rows of their own, and 8e's sweeps rows
+with their launches on phase 2's steps and on phase 13's; every row must
+have launched on its path), and the device line.
 
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -701,25 +714,29 @@ PER_STEP = {"K1 d8": 1, "K1 d4": 1, "K1 d32 compact": 1, "K1 wide": 1,
 
 
 def counts():
-    from wide_deep_tpu_torch.ops import gather, rowdma, scatter
+    from wide_deep_tpu_torch.ops import gather, optim_sweep, rowdma, scatter
     out = {"K1": scatter.range_launches, "K2": scatter.window_launches,
            "d16 ok=0": scatter.window_ok0_launches,
            "K3": rowdma.rowdma_launches,
            "P1": gather.resident_gather_launches,
-           "P2": rowdma.bulk_scatter_launches}
+           "P2": rowdma.bulk_scatter_launches,
+           "S Ftrl": optim_sweep.ftrl_launches,
+           "S Adagrad": optim_sweep.adagrad_launches}
     for d, n in scatter.range_launches_by_width().items():
         out[f"K1 {K1_SITES.get(d, f'D={d}')}"] = n
     return out
 
 
 def reset_counts():
-    from wide_deep_tpu_torch.ops import gather, rowdma, scatter
+    from wide_deep_tpu_torch.ops import gather, optim_sweep, rowdma, scatter
     scatter.range_launches = 0
     scatter.window_launches = 0
     scatter.window_ok0_launches = 0
     rowdma.rowdma_launches = 0
     gather.resident_gather_launches = 0
     rowdma.bulk_scatter_launches = 0
+    optim_sweep.ftrl_launches = 0
+    optim_sweep.adagrad_launches = 0
     scatter.range_launches_by_shape.clear()
 
 
@@ -785,8 +802,13 @@ def phase_trainer(card, tmp):
     del trainer.train_batch
     if len(file_steps) != 2 or trainer.global_step != 2:
         raise SystemExit(f"train_file took {len(file_steps)} steps")
+    # the main path's dense update: one sweep a Ftrl / Adagrad leaf a step
+    sweeps = sweep_leaves(trainer)
+    if not all(sweeps.values()):
+        raise SystemExit(f"the production config sweeps {sweeps} a step")
     for i, d in enumerate(file_steps):
         check_step(f"file step {i}", d)
+        check_sweeps(f"file step {i}", d, sweeps)
     file_counts = counts()
     file_losses = [float(x) for x in trainer.losses]
     log(f"phase 2a: train_file 2 steps in {time.time() - t0:.1f} s through "
@@ -819,6 +841,7 @@ def phase_trainer(card, tmp):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         d = delta(c0, counts())
         check_step(f"synthetic step {i}", d)
+        check_sweeps(f"synthetic step {i}", d, sweeps)
         if d["K2"] != 1:
             raise SystemExit(f"synthetic step {i}: d16 took the ok=0 branch")
         losses.append(float(loss))
@@ -839,7 +862,7 @@ def phase_trainer(card, tmp):
         f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
         f"{max(step_ms):.2f}) at batch {BATCH} on {card}; losses {losses}; "
         f"launches per step K1 4 (d8, d4, d32 compact, wide 1 each), K2 1, "
-        f"K3 1; "
+        f"K3 1, sweeps {sweeps}; "
         f"peak memory {peak:.2f} GB")
     profile_steps(trainer, rng)
     return trainer, tsv, main_counts
@@ -1916,15 +1939,35 @@ def recorded_update(trainer):
     return replay
 
 
+def sweep_leaves(trainer):
+    """The sweep kernel's launches a step of ``trainer``, by counter: one
+    a dense leaf under Ftrl or Adagrad (csrc/optim_sweep.cu)."""
+    want = {"S Ftrl": 0, "S Adagrad": 0}
+    for arm, (spec, _) in trainer.tx.arms.items():
+        key = f"S {spec['name']}"
+        if key in want:
+            want[key] += len(trainer.tx.leaves(trainer.params, arm))
+    return want
+
+
+def check_sweeps(what, d, sweeps):
+    """A counter change ``d`` over steps against ``sweeps``, the launches
+    they must add (``sweep_leaves`` times the steps)."""
+    got = {k: d.get(k, 0) for k in sweeps}
+    if got != sweeps:
+        raise SystemExit(f"{what}: sweep launches {got}, want {sweeps}")
+
+
 def synthetic_steps(trainer, sites, n, what, seed):
     """``n`` synthetic steps, each synchronized and its launches checked
-    against ``sites`` -> (losses, step ms)."""
+    against ``sites`` and ``sweep_leaves`` -> (losses, step ms)."""
     import numpy as np
     import torch
 
     from wide_deep_tpu_torch import testing
     rng = np.random.default_rng(seed)
     losses, ms = [], []
+    sweeps = sweep_leaves(trainer)
     for i in range(n):
         batch = testing.synthetic_batch(trainer.plan, BATCH, rng)
         db = trainer._to_device(batch)
@@ -1933,8 +1976,9 @@ def synthetic_steps(trainer, sites, n, what, seed):
         losses.append(float(trainer.train_batch(db)))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        check_sites(f"{what} synthetic step {i}",
-                    delta(c0, site_counts(trainer)), sites)
+        d = delta(c0, site_counts(trainer))
+        check_sites(f"{what} synthetic step {i}", d, sites)
+        check_sweeps(f"{what} synthetic step {i}", d, sweeps)
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{what}: non-finite loss {losses}")
     return losses, ms
@@ -1956,7 +2000,6 @@ def phase_fm(card, tmp):
     from torch.profiler import ProfilerActivity, profile
 
     from wide_deep_tpu_torch import testing
-    from wide_deep_tpu_torch.optim import leaf_update_, slot_inits
     from wide_deep_tpu_torch.training.loop import Trainer
 
     t0 = time.time()
@@ -1981,8 +2024,9 @@ def phase_fm(card, tmp):
                          f"host's: {worst} ulp; not copied: {skipped}")
     log(f"phase 8a: 3 synthetic steps {', '.join(f'{x:.2f}' for x in ms)} "
         f"ms (step 0 with its update copied to the host), losses {losses};"
-        f" launches per step {SITES_FM} and K2 1; step 0 on the card vs the"
-        f" host, worst ulp by leaf (param and slots): {json.dumps(worst)}")
+        f" launches per step {SITES_FM} and K2 1, sweeps {sweep_leaves(tr)}"
+        f"; step 0 on the card vs the host, worst ulp by leaf (param and "
+        f"slots): {json.dumps(worst)}")
     del replay
 
     # two file steps, twice from the same state: bit for bit
@@ -2020,9 +2064,7 @@ def phase_fm(card, tmp):
         f"{la} both times, params, BN and optimizer state bit for bit; "
         f"launches per step {[nonzero(d) for d in steps]}")
 
-    # device time of a step, and of the FTRL sweep over v alone
-    gen = torch.Generator(device=tr.device).manual_seed(5)
-    rows = tr.plan.wide_dim
+    # device time of a step (the sweep over v alone: phase 8e)
     batches = [tr._to_device(testing.synthetic_batch(
         tr.plan, BATCH, np.random.default_rng(44 + i))) for i in range(3)]
     torch.cuda.synchronize()
@@ -2034,28 +2076,131 @@ def phase_fm(card, tmp):
         torch.cuda.synchronize()
     step_dev = sum(dev_us(e) for e in prof.key_averages()
                    if on_device(e)) / 1e3 / 2
-    spec, schedule = tr.tx.arms["linear"]
-    st = tr.opt_state["dense"]["linear"]
-    path = ("linear", "v")
-    w = v.detach().clone()
-    slots = {k: st[k][path].clone() for k in slot_inits(spec)}
-    g = torch.randn(w.shape, generator=gen, device=tr.device) * 1e-3
-    lr = schedule(st["count"])
-
-    def sweep():
-        leaf_update_(spec, lr, st["count"], w, g, slots)
-    sweep()
-    parts, _ = device_ms(sweep, calls=5)
-    sweep_ms = sum(parts.values())
     log(f"phase 8a: device time a step {step_dev:.3f} ms (profiler, 2 "
-        f"steps); the FTRL sweep over v ([{rows}, {FM_FACTORS}] float32 with "
-        f"n and z) {sweep_ms:.3f} ms on the device over "
-        f"{len(parts)} kernel kinds, "
-        f"{100 * sweep_ms / max(step_dev, 1e-9):.1f}% of the step; phase 8a "
-        f"in {time.time() - t0:.1f} s")
-    del tr, batches, w, g, slots, v, st, prof
+        f"steps); phase 8a in {time.time() - t0:.1f} s")
+    del tr, batches, v, prof
     release()
-    return {"step_ms": ms, "device_ms": step_dev, "v_sweep_ms": sweep_ms}
+    return {"step_ms": ms, "device_ms": step_dev}
+
+
+# phase 8e: the sweep kernel at the cells' largest dense leaves, by rule,
+# site, shape and dtype
+SWEEP_ROWS = (("Ftrl", "v (FM, k = 8)", (12_715_008, 8), "float32"),
+              ("Ftrl", "wide", (10_000_640, 1), "float32"),
+              ("Adagrad", "d16 table", (1_500_160, 17), "bfloat16"))
+
+
+def phase_sweeps():
+    """8e: the sweep kernel (csrc/optim_sweep.cu) at ``SWEEP_ROWS``' shapes:
+    one step from one state by the kernel and by the eager chain on the
+    card (``optim._ftrl_`` / ``_adagrad_``), the same bits; then each one's
+    time, the median of 10 by CUDA events and the device time of a
+    profiler window of 5 calls, beside the bound (the bytes read and
+    written once over HBM_BYTES_PER_S) -> the rows."""
+    import torch
+
+    from wide_deep_tpu_torch.ops import optim_sweep
+    from wide_deep_tpu_torch.optim import _adagrad_, _ftrl_
+    from wide_deep_tpu_torch.tools import median_ms
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lr = torch.tensor(0.05)
+    l1, l2 = 0.5, 1.0
+    spec = {"l1_regularization_strength": l1,
+            "l2_regularization_strength": l2}
+    rows = []
+    for rule, site, shape, dtype in SWEEP_ROWS:
+        dt = getattr(torch, dtype)
+        w = (torch.randn(shape, generator=gen, device=dev) * 0.05).to(dt)
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dt)
+        g[torch.rand(shape, generator=gen, device=dev) < 0.3] = 0
+        if rule == "Ftrl":
+            slots = [torch.full(shape, 0.1, device=dev),
+                     torch.randn(shape, generator=gen, device=dev) * 0.1]
+            n_bytes = w.numel() * (3 * w.element_size() + 16)
+
+            def kernel():
+                optim_sweep.ftrl_(lr, w, g, *slots, l1, l2)
+
+            def eager():
+                _ftrl_(spec, lr, w, g, *slots)
+        else:
+            slots = [torch.full(shape, 0.1, dtype=dt, device=dev)]
+            n_bytes = w.numel() * 5 * w.element_size()
+
+            def kernel():
+                optim_sweep.adagrad_(lr, w, g, *slots)
+
+            def eager():
+                _adagrad_(lr, w, g, *slots)
+        start = [t.clone() for t in (w, *slots)]
+        out = []
+        for fn in (kernel, eager):
+            for t, t0 in zip((w, *slots), start):
+                t.copy_(t0)
+            fn()
+            out.append([bits(t).clone() for t in (w, *slots)])
+        del start
+        same = all(torch.equal(a, b) for a, b in zip(*out))
+        del out
+        if not same:
+            raise SystemExit(f"phase 8e: {rule} over {site}: the kernel's "
+                             f"bits differ from the eager chain's")
+        times = {}
+        for key, fn in (("kernel", kernel), ("eager", eager)):
+            parts, whole = device_ms(fn, calls=5)
+            times[key] = {"ms": median_ms(fn, 10, dev),
+                          "device_ms": sum(parts.values()),
+                          "launches": len(parts), "whole": whole}
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"rule": rule, "site": site, "shape": list(shape),
+               "dtype": dtype, "bound_ms": b_ms, **times}
+        rows.append(row)
+        k, e = times["kernel"], times["eager"]
+        # the share of the bound by the device time where the profiler
+        # kept the whole window, else by the events' time
+        by = "device" if k["whole"] else "events"
+        k_ms = k["device_ms"] if k["whole"] else k["ms"]
+        log(f"phase 8e: {rule} over {site} {list(shape)} {dtype}: the "
+            f"kernel's bits are the eager chain's; kernel {k['ms']:.4f} ms "
+            f"(device {k['device_ms']:.4f} ms, {k['launches']} kernel kind), "
+            f"eager chain {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms "
+            f"over {e['launches']} kernel kinds), bound {b_ms:.4f} ms "
+            f"({n_bytes / w.numel():.0f} bytes an element): kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of its bound by its {by} time"
+            + "".join(f"; the profiler dropped the {key}'s events"
+                      for key, t in times.items() if not t["whole"]))
+        del w, g, slots
+        release()
+    return rows
+
+
+def sweep_rows(sweeps, main_counts, dcn_counts):
+    """8e's rows (``phase_sweeps``) as rows of the kernels line: the
+    kernel's time beside the eager chain's (``plain_ms``) and the bound;
+    its launches on the main path (phase 2's steps) and on phase 13's DCN
+    steps."""
+    rows = []
+    for r in sweeps:
+        key = f"S {r['rule']}"
+        k, e = r["kernel"], r["eager"]
+        rows.append({
+            "name": f"{key} optim_elementwise_{r['rule'].lower()}_kernel "
+                    f"{r['site']}",
+            "route": "cuda",
+            "source": "wide_deep_tpu_torch/csrc/optim_sweep.cu",
+            "replaces": None, "plain": f"optim._{r['rule'].lower()}_",
+            "launches": main_counts.get(key, 0),
+            "launches_dcn": dcn_counts.get(key, 0),
+            "shape": r["shape"], "dtype": r["dtype"], "max_abs_err": 0.0,
+            "tolerance": "0 ulp against the eager chain", "ok": True,
+            "ms": k["ms"], "device_ms": k["device_ms"],
+            "plain_ms": e["ms"], "plain_device_ms": e["device_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "HBM bytes",
+            # device times the profiler left incomplete in every attempt
+            "profile_incomplete": [key for key, t in (
+                ("device_ms", k), ("plain_device_ms", e)) if not t["whole"]]})
+    return rows
 
 
 def phase_optimizers(card, tmp):
@@ -2097,7 +2242,8 @@ def phase_optimizers(card, tmp):
             f"(d{big.dim} {list(table.shape)} {str(table.dtype)[6:]}), "
             f"2 synthetic "
             f"steps {', '.join(f'{x:.2f}' for x in ms)} ms, losses {losses};"
-            f" launches per step {sites} and K2 1; step 0 on the card vs "
+            f" launches per step {sites} and K2 1, sweeps "
+            f"{sweep_leaves(tr)}; step 0 on the card vs "
             f"the host, worst ulp by leaf (param and slots): "
             f"{json.dumps(worst)}"
             + (f"; not copied: {skipped}" if skipped else ""))
@@ -2261,6 +2407,7 @@ def phase_configs(card, tmp):
     """Phase 8: the training configurations beyond the production one."""
     t0 = time.time()
     fm = phase_fm(card, tmp)
+    sweeps = phase_sweeps()
     opts = phase_optimizers(card, tmp)
     tr = phase_stream(card, tmp)
     phase_defer(card, tr)
@@ -2268,7 +2415,7 @@ def phase_configs(card, tmp):
     release()
     line = phase_defer_tool()
     log(f"phase 8 in {time.time() - t0:.1f} s")
-    return {"fm": fm, "optimizers": opts, "defer": line}
+    return {"fm": fm, "sweeps": sweeps, "optimizers": opts, "defer": line}
 
 
 # ------------------------------------------------------------------ phase 9
@@ -3816,17 +3963,21 @@ def phase_dcn(card, tmp):
             batches.append(b)
         counts0 = (scatter.range_launches_by_width().get(128, 0),
                    rowdma.rowdma_launches_by_width.get(132, 0))
+        c0 = counts()
         losses = {}
         for dev, tr in trs.items():
             losses[dev] = []
             for b in batches:
                 losses[dev].append(float(tr.train_batch(b)))
         torch.cuda.synchronize()
-        counts = (scatter.range_launches_by_width().get(128, 0) - counts0[0],
-                  rowdma.rowdma_launches_by_width.get(132, 0) - counts0[1])
-        if counts != (3, 3):
+        held = (scatter.range_launches_by_width().get(128, 0) - counts0[0],
+                rowdma.rowdma_launches_by_width.get(132, 0) - counts0[1])
+        if held != (3, 3):
             raise SystemExit(f"phase 13: K1 d128 / K3 w132 launches over 3 "
-                             f"steps: {counts}, want (3, 3)")
+                             f"steps: {held}, want (3, 3)")
+        sweeps = {k: 3 * v for k, v in sweep_leaves(trs["cuda"]).items()}
+        swept = delta(c0, counts())
+        check_sweeps("phase 13: DCN Trainer over 3 steps", swept, sweeps)
         loss_gap = max(abs(a - b) / abs(a)
                        for a, b in zip(losses["cpu"], losses["cuda"]))
         start = Trainer(Config(conf), "deep",
@@ -3855,9 +4006,9 @@ def phase_dcn(card, tmp):
     finally:
         sparse_lib.SPARSE_MIN_ROWS = saved
     log(f"phase 13: DCN Trainer at batch 1024: K1 d128 and K3 w132 once "
-        f"a step; {step_ms:.3f} ms a step (CUDA events, median of 10); "
-        f"phase 13 in {time.time() - t0:.1f} s")
-    return rows, {"K1 d128": counts[0], "K3 w132": counts[1]}
+        f"a step, sweeps over 3 steps {sweeps}; {step_ms:.3f} ms a step "
+        f"(CUDA events, median of 10); phase 13 in {time.time() - t0:.1f} s")
+    return rows, dict(sweeps, **{"K1 d128": held[0], "K3 w132": held[1]})
 
 
 def phase_perf_gate(profile_dir):
@@ -3972,7 +4123,13 @@ def main():
 
     card = device_name(torch.device("cuda"))    # nvidia-smi's line
     log(card)
-    only_dcn = sys.argv[1:] == ["--only", "dcn"]
+    only = None
+    if sys.argv[1:]:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only" or sys.argv[2] \
+                not in ("dcn", "optim"):
+            print("usage: chip_smoke.py [--only dcn|optim]", file=sys.stderr)
+            return 2
+        only = sys.argv[2]
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
         loader = pool.submit(native.build)
@@ -3984,13 +4141,23 @@ def main():
         f"{'built' if loader['built'] else 'found'} in "
         f"{loader['seconds']:.1f} s: {os.path.relpath(loader['path'], ROOT)}")
 
-    if only_dcn:
+    if only == "dcn":
         tmp = tempfile.mkdtemp(prefix="chip_smoke_dcn_")
         try:
             dcn_rows, _ = phase_dcn(card, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         log(json.dumps({"kernels": dcn_rows}))
+        return 0
+    if only == "optim":
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_optim_")
+        try:
+            phase_fm(card, tmp)
+            sweeps = phase_sweeps()
+            phase_optimizers(card, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(json.dumps({"sweeps": sweeps}))
         return 0
     device = torch.device("cuda")
     config = Config(os.path.join(ROOT, "conf"))
@@ -4028,7 +4195,7 @@ def main():
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_configs_")
     try:
-        phase_configs(card, tmp)
+        configs = phase_configs(card, tmp)
         release()
         phase_quality(card, tmp)
         release()
@@ -4077,6 +4244,8 @@ def main():
     for row in dcn_rows:
         row["launches"] = dcn_counts["K1 d128" if row["name"].startswith(
             "K1") else "K3 w132"] if "w136" not in row["name"] else 0
+    # the optimizer sweeps, counted on the main path (phase 2)
+    kernels.extend(sweep_rows(configs["sweeps"], main_counts, dcn_counts))
     if not all(row["launches"] > 0 for row in kernels):
         raise SystemExit(f"a kernel never ran on its path: train "
                          f"{main_counts}, tools {tool_counts}")

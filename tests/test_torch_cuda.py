@@ -1109,42 +1109,110 @@ SPEC_L1_L2 = {"l1_regularization_strength": 0.5,
               "l2_regularization_strength": 1.0}
 
 
+def _sweep_launches():
+    from wide_deep_tpu_torch.ops import optim_sweep
+    return {"Ftrl": optim_sweep.ftrl_launches,
+            "Adagrad": optim_sweep.adagrad_launches}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [1, 7, (1 << 20) + 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["Ftrl", "ProximalAdagrad", "Adagrad"])
-def test_cuda_optimizer_leaf_matches_host_bits(cuda_device, name, dtype):
+def test_cuda_optimizer_leaf_matches_host_bits(cuda_device, name, dtype, n,
+                                               offset):
     """``leaf_update_`` on the card gives the host's bits (0 ulp) for the
     param and every slot over three steps (FTRL's first step takes its
-    root in the param's dtype), on 2^20 elements with zero gradients
-    among them and conf/'s decaying learning rate: roots in float64 and
-    divisions by device-held scalars (optim/__init__.py ``_sqrt``,
-    ``_rsqrt``, ``_on``)."""
+    root in the param's dtype), on ``n`` elements with zero gradients
+    among them and conf/'s decaying learning rate.  Ftrl and Adagrad run
+    the sweep kernel (csrc/optim_sweep.cu), one launch a step, on leaves
+    16-byte aligned and (``offset``) one element past that, as a view into
+    a flat buffer is (its scalar loop); ProximalAdagrad runs the eager
+    chain (roots in float64 and divisions by device-held scalars:
+    optim/__init__.py ``_sqrt``, ``_rsqrt``, ``_on``)."""
     from wide_deep_tpu_torch.optim import (exponential_decay, leaf_update_,
                                            slot_inits)
     spec = dict({"name": name, "learning_rate": 0.05}, **SPEC_L1_L2)
     schedule = exponential_decay(0.05, 0.8, 7.0)
     rng = np.random.default_rng(11)
-    n = 1 << 20
     w0 = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32))
     grads = []
     for _ in range(3):
         g = rng.normal(0, 1e-2, n).astype(np.float32)
         g[rng.random(n) < 0.3] = 0.0
+        g[0] = 0.0
         grads.append(torch.from_numpy(g).to(dtype))
+
+    def placed(t, dev):
+        # ``t`` on ``dev`` at ``offset`` elements into a buffer of its own
+        buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+        out = buf[offset:]
+        out.copy_(t)
+        return out
+
     out = {}
     for dev in ("cpu", cuda_device):
-        w = w0.to(dev, dtype, copy=True)
-        slots = {k: torch.full_like(w, v).to(dt or dtype)
+        w = placed(w0.to(dtype), dev)
+        slots = {k: placed(torch.full_like(w0, v).to(dt or dtype), dev)
                  for k, (v, dt) in slot_inits(spec).items()}
         steps = []
         for count, g in enumerate(grads):
-            leaf_update_(spec, schedule(count), count, w, g.to(dev), slots)
+            before = _sweep_launches()
+            leaf_update_(spec, schedule(count), count, w,
+                         placed(g, dev), slots)
+            rose = {k: v - before[k] for k, v in _sweep_launches().items()}
+            on_card = str(dev) != "cpu"
+            assert rose == {k: int(on_card and k == name) for k in rose}, (
+                dev, rose)
             steps.append([t.to("cpu", copy=True)
                           for t in [w, *slots.values()]])
         out[str(dev)] = steps
     for count, (host, card) in enumerate(zip(out["cpu"], out["cuda"])):
         for i, (a, b) in enumerate(zip(host, card)):
             assert int(_ulp(a, b).max()) == 0, (name, count, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Ftrl", "Adagrad"])
+def test_cuda_optimizer_sweep_refuses_what_it_cannot_take(cuda_device,
+                                                          name):
+    """A CUDA leaf under Ftrl or Adagrad that the sweep kernel cannot take
+    raises rather than falling back: a strided param, a strided slot, a
+    float16 param; nothing is launched or written.  A strided gradient is
+    taken (made contiguous first)."""
+    from wide_deep_tpu_torch.optim import leaf_update_, slot_inits
+    spec = dict({"name": name, "learning_rate": 0.05}, **SPEC_L1_L2)
+    lr = torch.tensor(0.05)
+
+    def leaf(dtype=torch.float32, strided=()):
+        w = torch.ones(64, 4, dtype=dtype, device=cuda_device)
+        slots = {k: torch.full_like(w, v).to(dt or dtype)
+                 for k, (v, dt) in slot_inits(spec).items()}
+        g = torch.full_like(w, 0.5)
+        if "w" in strided:
+            w = torch.ones(4, 64, dtype=dtype, device=cuda_device).t()
+        if "slot" in strided:
+            k = next(iter(slots))
+            slots[k] = slots[k].t().contiguous().t()
+        return w, g, slots
+
+    for args in (leaf(strided=("w",)), leaf(strided=("slot",)),
+                 leaf(dtype=torch.float16)):
+        w, g, slots = args
+        before = _sweep_launches()
+        w0 = w.clone()
+        with pytest.raises(ValueError):
+            leaf_update_(spec, lr, 0, w, g, slots)
+        assert _sweep_launches() == before
+        assert torch.equal(w, w0)
+    # a strided gradient is taken, as its contiguous copy
+    w, g, slots = leaf()
+    w2, slots2 = w.clone(), {k: v.clone() for k, v in slots.items()}
+    leaf_update_(spec, lr, 0, w, g.t().contiguous().t(), slots)
+    leaf_update_(spec, lr, 0, w2, g, slots2)
+    for a, b in zip([w, *slots.values()], [w2, *slots2.values()]):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda

@@ -66,6 +66,8 @@ def test_off_records_nothing(tmp_path, monkeypatch):
     assert snap["spans"] == {} and _program_counters(snap) == {}
     assert "kernels.rowdma.rowdma_launches" in snap["counters"]
     assert "kernels.scatter.range_carry_launches" in snap["counters"]
+    assert "kernels.optim_sweep.ftrl_launches" in snap["counters"]
+    assert "kernels.optim_sweep.adagrad_launches" in snap["counters"]
 
 
 def test_step_spans_under_the_profiler(tmp_path):

@@ -32,6 +32,10 @@ Semantics follow the JAX package exactly, not ``torch.optim``:
   held on the tensor's device (``_on``): the card multiplies by the
   reciprocal of a host scalar, and neither its float32 root nor its
   rsqrt is correctly rounded.
+* On the card, a leaf under Ftrl or Adagrad is updated by one launch of
+  the sweep kernel (``ops/optim_sweep.py``, csrc/optim_sweep.cu), which
+  makes ``_ftrl_``'s / ``_adagrad_``'s roundings in their order; these
+  eager versions stay the plain ones, run for CPU leaves.
 
 ``JointOptimizer`` partitions the param tree by its top-level arm key and
 updates in place; paths handled by the fused sparse optimizer
@@ -43,6 +47,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
+
+from wide_deep_tpu_torch.ops import optim_sweep
 
 Schedule = Callable[[int], torch.Tensor]
 SUPPORTED = ("Adagrad", "Adam", "Ftrl", "RMSProp", "SGD", "Momentum",
@@ -225,13 +231,22 @@ def slot_inits(spec) -> Dict[str, Tuple[float, Any]]:
 def leaf_update_(spec, lr, count: int, w, g, slots: Dict[str, Any]) -> None:
     """One step of optimizer ``spec`` on one leaf, in place on ``w`` and
     its ``slots`` (``slot_inits``' names); ``lr`` is the arm's schedule at
-    ``count``, the arm's count before this step."""
+    ``count``, the arm's count before this step.  A CUDA leaf under Ftrl or
+    Adagrad takes one launch of the sweep kernel (``ops/optim_sweep.py``,
+    the same bits), a CPU leaf the eager version here."""
     name = spec["name"]
-    if name == "Ftrl":
+    if name == "Ftrl" and w.is_cuda:
+        optim_sweep.ftrl_(lr, w, g, slots["accum"], slots["linear"],
+                          spec.get("l1_regularization_strength", 0.0),
+                          spec.get("l2_regularization_strength", 0.0),
+                          first=count == 0)
+    elif name == "Ftrl":
         _ftrl_(spec, lr, w, g, slots["accum"], slots["linear"],
                first=count == 0)
     elif name == "ProximalAdagrad":
         _proximal_adagrad_(spec, lr, w, g, slots["accum"])
+    elif name == "Adagrad" and w.is_cuda:
+        optim_sweep.adagrad_(lr, w, g, slots["accum"])
     elif name == "Adagrad":
         _adagrad_(lr, w, g, slots["accum"])
     elif name == "Adam":

@@ -37,7 +37,9 @@ from typing import Dict, Optional, Sequence, Tuple
 from wide_deep_tpu_torch.tools.parse_trace import device_events
 
 # the port's hand-written kernels (wide_deep_tpu_torch/csrc/*.cu) by their
-# __global__ symbol
+# __global__ symbol; the optimizer sweeps (csrc/optim_sweep.cu,
+# optim_elementwise_*_kernel) stay in the elementwise bucket, where the
+# eager chains they replace were
 PORT_KERNELS = {
     "range_chunk_kernel": "K1", "range_carry_kernel": "K1",
     "window_scatter_kernel": "K2", "rowdma_kernel": "K3",

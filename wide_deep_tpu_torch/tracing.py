@@ -46,8 +46,9 @@ The train path's spans (the benchmark's ``metrics/`` read them by name):
   train.update.dense    the dense per-arm update              (device)
   train.update.sparse   the touched-rows tables' updates      (device)
 
-``snapshot`` also reads the kernels' launch counters of ``ops/scatter.py``
-and ``ops/rowdma.py`` where they are kept, as ``kernels.<module>.<name>``:
+``snapshot`` also reads the kernels' launch counters of ``ops/scatter.py``,
+``ops/rowdma.py`` and ``ops/optim_sweep.py`` (one launch a dense FTRL or
+Adagrad leaf a step) where they are kept, as ``kernels.<module>.<name>``:
 launches since the process started, not since ``reset``.
 """
 
@@ -174,7 +175,7 @@ class _Span:
 
 
 def _kernel_counters() -> Dict[str, int]:
-    from wide_deep_tpu_torch.ops import rowdma, scatter
+    from wide_deep_tpu_torch.ops import optim_sweep, rowdma, scatter
     out = {f"kernels.scatter.{k}": getattr(scatter, k)
            for k in ("range_launches", "range_carry_launches",
                      "window_launches", "window_ok0_launches")}
@@ -184,6 +185,8 @@ def _kernel_counters() -> Dict[str, int]:
                 for k in ("rowdma_launches", "bulk_scatter_launches")})
     out.update({f"kernels.rowdma.rowdma_launches.w{w}": n
                 for w, n in rowdma.rowdma_launches_by_width.items()})
+    out.update({f"kernels.optim_sweep.{k}": getattr(optim_sweep, k)
+                for k in ("ftrl_launches", "adagrad_launches")})
     return out
 
 
