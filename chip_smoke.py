@@ -132,10 +132,6 @@ each on stdout:
       read by ``StreamDataset`` again, through ``train_batch`` from the
       checkpoint taken just before the stream give the same losses bit for
       bit;
-   d. on that Trainer, 3 immediate steps against 3 deferred steps +
-      ``flush_step`` from one state and batches: losses, params, BN and
-      optimizer state and every count bit for bit; then
-      ``tools.experiment_defer_sparse.main``'s line;
    e. (after a) the sweep kernel (csrc/optim_sweep.cu) at the cells'
       largest dense leaves (``SWEEP_ROWS``: FTRL over [12,715,008, 8] and
       [10,000,640, 1] float32, Adagrad over [1,500,160, 17] bfloat16): the
@@ -1700,7 +1696,6 @@ def serve_tls_and_slo(card, tmp, bundle, some):
 
 # ------------------------------------------------------------------ phase 8
 FM_FACTORS = 8              # phase 8a's linear_fm_factors (model.yaml: 0)
-DEFER_STEPS = 3
 # phase 8b's configurations: conf/ with only these model.yaml keys changed
 L1_L2 = "l1_regularization_strength: 0.5, l2_regularization_strength: 1.0"
 OPTIMIZER_CONFIGS = (
@@ -2254,7 +2249,7 @@ def phase_optimizers(card, tmp):
 
 
 def phase_stream(card, tmp):
-    """8c: the stream; -> the Trainer, for 8d."""
+    """8c: the stream."""
     import torch
 
     from wide_deep_tpu_torch import testing
@@ -2318,89 +2313,6 @@ def phase_stream(card, tmp):
         f"in {save_s:.1f} s) "
         f"the same two batches read again gave the same losses bit for bit;"
         f" phase 8c in {time.time() - t0:.1f} s")
-    return tr
-
-
-def check_flush(d):
-    """flush_step's counter changes: the d32 table's pending update, K1
-    (its compact sum) and K3 once each, nothing else."""
-    if ({k: v for k, v in d.items() if v}
-            != {"K1": 1, "K1 d32 compact": 1, "K3": 1}):
-        raise SystemExit(f"phase 8d: the flush launched {d}")
-
-
-def phase_defer(card, tr):
-    """8d: deferred against immediate on ``tr`` (the production config)
-    -> seconds taken."""
-    import numpy as np
-    import torch
-
-    from wide_deep_tpu_torch import testing
-    from wide_deep_tpu_torch.training.step import (flush_step, seed_pending,
-                                                   train_step)
-
-    t0 = time.time()
-    rng = np.random.default_rng(61)
-    batches = [tr._device_batch(testing.synthetic_batch(tr.plan, BATCH, rng))
-               for _ in range(DEFER_STEPS)]
-    snap = clone_state(tr)
-    runs = []
-    for defer in (False, True):
-        load_state(tr, snap)
-        tr.opt_state.pop("sparse_pending", None)
-        if defer:
-            seed_pending(tr.sparse_tables, tr.opt_state, batches[0])
-        losses, steps = [], []
-        for b in batches:
-            c0 = counts()
-            tr.mstate, loss = train_step(tr.model, tr.tx, tr.params,
-                                         tr.mstate, tr.opt_state, b,
-                                         tr.sparse_tables, rng=tr._gen,
-                                         defer_sparse=defer)
-            torch.cuda.synchronize()
-            d = delta(c0, counts())
-            check_step(f"phase 8d: {'deferred' if defer else 'immediate'} "
-                       f"step {len(steps)}", d)
-            steps.append(d)
-            losses.append(float(loss))
-        if defer:
-            c0 = counts()
-            flush_step(tr.sparse_tables, tr.params, tr.opt_state)
-            torch.cuda.synchronize()
-            check_flush(delta(c0, counts()))
-            del tr.opt_state["sparse_pending"]
-        runs.append((losses, clone_state(tr)))
-    (la, sa), (lb, sb) = runs
-    bad = [f"{w}/{leaf}" for w in ("params", "mstate", "opt_state")
-           for leaf in same_bits(sa[w], sb[w])]
-    counts_a = [s["count"] for s in sa["opt_state"]["sparse"].values()]
-    counts_b = [s["count"] for s in sb["opt_state"]["sparse"].values()]
-    if la != lb or bad or counts_a != counts_b:
-        raise SystemExit(f"phase 8d: deferred differs from immediate: "
-                         f"losses {la} / {lb}, counts {counts_a} / "
-                         f"{counts_b}, leaves {bad[:8]}")
-    log(f"phase 8d: {DEFER_STEPS} deferred steps + flush_step = "
-        f"{DEFER_STEPS} immediate steps bit for bit (losses {la}; params, "
-        f"BN, optimizer state, counts {counts_a}); each step launched what "
-        f"an immediate step does, the flush one K1 and one K3 more")
-    del snap, runs, sa, sb, batches
-    return time.time() - t0
-
-
-def phase_defer_tool():
-    """8d's experiment: ``tools.experiment_defer_sparse.main`` (its own
-    two programs; the caller has freed every Trainer)."""
-    import contextlib
-    import io
-
-    from wide_deep_tpu_torch.tools import experiment_defer_sparse as exp
-    t0 = time.time()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        line = exp.main([])
-    log(f"phase 8d: tools.experiment_defer_sparse in "
-        f"{time.time() - t0:.1f} s: {json.dumps(line)}")
-    return line
 
 
 def phase_configs(card, tmp):
@@ -2409,13 +2321,10 @@ def phase_configs(card, tmp):
     fm = phase_fm(card, tmp)
     sweeps = phase_sweeps()
     opts = phase_optimizers(card, tmp)
-    tr = phase_stream(card, tmp)
-    phase_defer(card, tr)
-    del tr
+    phase_stream(card, tmp)
     release()
-    line = phase_defer_tool()
     log(f"phase 8 in {time.time() - t0:.1f} s")
-    return {"fm": fm, "sweeps": sweeps, "optimizers": opts, "defer": line}
+    return {"fm": fm, "sweeps": sweeps, "optimizers": opts}
 
 
 # ------------------------------------------------------------------ phase 9

@@ -884,51 +884,7 @@ def test_cuda_served_scores_are_predict_step_without_kernels(card_bundle):
         m.close()
 
 
-# ------------------------------------------- optimizers, FM, defer (PR 10)
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["Adagrad", "Ftrl", "ProximalAdagrad",
-                                  "SGD"])
-def test_cuda_compact_update_matches_cpu(cuda_device, name):
-    """apply_compact_update on the card (K1 once) against the same call on
-    the host: float32 rows from sums in another order, rtol 1e-5 / atol
-    1e-6; sentinel uids dropped, untouched rows bit for bit."""
-    from wide_deep_tpu_torch.ops.scatter import make_compact_plan
-    from wide_deep_tpu_torch.optim.sparse import (SparseTable,
-                                                  apply_compact_update,
-                                                  init_table_state)
-    rng = np.random.default_rng(5)
-    rows, d = 5000, 8
-    ids = (rng.zipf(1.3, 4096) % rows).astype(np.int32)
-    g = rng.normal(size=(ids.size, d)).astype(np.float32)
-    param = rng.normal(size=(rows, d)).astype(np.float32)
-    plan = make_compact_plan(ids, rows)
-    spec = {"name": name, "learning_rate": 0.1,
-            "l1_regularization_strength": 0.01,
-            "l2_regularization_strength": 0.1}
-    table = SparseTable(name="t", path=("t",), ids_key="ids", spec=spec,
-                        lr=0.1, dim=d)
-    out = {}
-    for dev in ("cpu", cuda_device):
-        p = torch.from_numpy(param.copy()).to(dev)
-        st = init_table_state(table, p)
-        before = tsc.range_launches
-        apply_compact_update(table, p, torch.from_numpy(g).to(dev),
-                             {k: torch.from_numpy(v).to(dev)
-                              for k, v in plan.items()}, st)
-        if dev != "cpu":
-            torch.cuda.synchronize()
-            assert tsc.range_launches - before == 1
-        out[str(dev)] = (p.cpu(), {k: v.cpu() for k, v in st.items()
-                                   if isinstance(v, torch.Tensor)})
-    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
-    np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=1e-5, atol=1e-6)
-    for k in sc:
-        np.testing.assert_allclose(sg[k].numpy(), sc[k].numpy(), rtol=1e-5,
-                                   atol=1e-6, err_msg=k)
-    untouched = np.setdiff1d(np.arange(rows), ids)
-    assert torch.equal(pg[untouched], torch.from_numpy(param)[untouched])
-
-
+# -------------------------------------------------------- optimizers, FM
 @pytest.mark.cuda
 def test_cuda_fm_gather_backward_is_deterministic(cuda_device):
     """The FM term's gradient of ``v`` on the card: K1 at width k over the
@@ -1018,78 +974,6 @@ def test_cuda_sgd_fused_table_matches_cpu(cuda_device, tmp_path,
                                    cpu_leaves[path].detach().numpy(),
                                    rtol=1e-3, atol=1e-4, err_msg=str(path))
     assert not gpu.params["dnn"]["embed"]["d8"][:, 8:].any()
-
-
-@pytest.mark.cuda
-def test_cuda_deferred_matches_immediate(cuda_device, tmp_path, monkeypatch):
-    """3 deferred steps + flush_step against 3 immediate steps on the card,
-    from the same params and batches, the deferred side's counts seeded at
-    -1: losses, params and optimizer state (every count) bit for bit.  A
-    deferred step launches what an immediate one does (its first step's
-    apply is the seed's); the flush adds one K1 and one K3."""
-    from paths import TRAIN1
-    from wide_deep_tpu_torch.training.step import (flush_step, seed_pending,
-                                                   train_step)
-    tr = _optimizer_trainer(tmp_path, monkeypatch, "Adagrad", "cuda")
-    tr.ensure_initialized(restore=False)
-    init = {w: _to(getattr(tr, w), cuda_device)
-            for w in ("params", "mstate")}
-    batches = []
-    for b in tr._dataset(TRAIN1, "train"):
-        batches.append(tr._device_batch(b))
-        if len(batches) == 3:
-            break
-    runs = []
-    for defer in (False, True):
-        tr.params = _to(init["params"], cuda_device)
-        tr.mstate = _to(init["mstate"], cuda_device)
-        tr.opt_state = None
-        tr._ckpt = None
-        tr.ensure_initialized(restore=False)
-        if defer:
-            seed_pending(tr.sparse_tables, tr.opt_state, batches[0])
-        losses, launches = [], []
-        for b in batches:
-            c0 = (tsc.range_launches, trowdma.rowdma_launches)
-            tr.mstate, loss = train_step(tr.model, tr.tx, tr.params,
-                                         tr.mstate, tr.opt_state, b,
-                                         tr.sparse_tables, rng=tr._gen,
-                                         defer_sparse=defer)
-            launches.append((tsc.range_launches - c0[0],
-                             trowdma.rowdma_launches - c0[1]))
-            losses.append(float(loss))
-        if defer:
-            c0 = (tsc.range_launches, trowdma.rowdma_launches)
-            flush_step(tr.sparse_tables, tr.params, tr.opt_state)
-            assert (tsc.range_launches - c0[0],
-                    trowdma.rowdma_launches - c0[1]) == (1, 1)
-            del tr.opt_state["sparse_pending"]
-        torch.cuda.synchronize()
-        runs.append((losses, launches, _to(tr.params, "cpu"),
-                     {"dense": _to_state(tr.opt_state["dense"]),
-                      "sparse": _to_state(tr.opt_state["sparse"])}))
-    (la, ka, pa, sa), (lb, kb, pb, sb) = runs
-    assert la == lb and ka == kb
-    assert all(k == (3, 1) for k in ka)   # d4 fold, d8 compact, wide; K3
-    from wide_deep_tpu_torch.optim import tree_items
-    for a, b in ((pa, pb), (sa, sb)):
-        la_, lb_ = dict(tree_items(a)), dict(tree_items(b))
-        assert sorted(map(str, la_)) == sorted(map(str, lb_))
-        for path, va in la_.items():
-            if isinstance(va, torch.Tensor):
-                assert torch.equal(va.reshape(-1).view(torch.uint8),
-                                   lb_[path].reshape(-1).view(torch.uint8)
-                                   ), path
-            else:
-                assert va == lb_[path], path
-
-
-def _to_state(tree):
-    if isinstance(tree, dict):
-        return {k: _to_state(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
-    return tree
 
 
 # ------------------------------ optimizer numerics, card against host (PR 11)
@@ -1400,8 +1284,7 @@ def test_cuda_fused_sharded_update_matches_cpu(cuda_device, shards):
     fused[:, dim:2 * dim] = 0.1
     g = (rng.integers(-64, 64, (n, dim)) / 64.0).astype(np.float32)
     table = sp.SparseTable(name="t", path=("t",), ids_key="ids",
-                           spec={"name": "Adagrad"}, lr=0.05, dim=dim,
-                           fused=True)
+                           spec={"name": "Adagrad"}, lr=0.05, dim=dim)
     per = rows // shards
 
     def update(s, row, dev):

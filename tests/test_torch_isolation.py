@@ -166,15 +166,14 @@ def test_port_builds_its_own_serving_client():
 
 NEW_MODULES = ("wide_deep_tpu_torch.features.stream",
                "wide_deep_tpu_torch.tools.stream_server",
-               "wide_deep_tpu_torch.tools.experiment_defer_sparse",
                "wide_deep_tpu_torch.optim.sparse",
                "wide_deep_tpu_torch.training.step")
 
 
 def test_stream_and_defer_modules_stand_alone():
-    """The stream, the stream server and the defer experiment are scanned
-    by the tests above, and importing them (with the optimizers and the
-    step) loads neither JAX nor the JAX package."""
+    """The stream and the stream server are scanned by the tests above,
+    and importing them (with the optimizers and the step) loads neither
+    JAX nor the JAX package."""
     files = {os.path.relpath(p, REPO) for p in _port_files()}
     for mod in NEW_MODULES:
         assert mod.replace(".", "/") + ".py" in files, mod
@@ -187,13 +186,6 @@ def test_stream_and_defer_modules_stand_alone():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-
-
-def test_defer_experiment_needs_cuda_unless_cpu_is_asked(monkeypatch):
-    from wide_deep_tpu_torch.tools import experiment_defer_sparse
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        experiment_defer_sparse.main([])
 
 
 TOOL_MODULES = ("wide_deep_tpu_torch.tools.tls_proxy",

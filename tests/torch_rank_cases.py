@@ -136,7 +136,7 @@ def case_sparse(mesh_of, args):
         fused = torch.from_numpy(_shard(c["fused"], mesh).copy())
         table = sparse_lib.SparseTable(
             name="t", path=("t",), ids_key="ids", spec=c["spec"],
-            lr=c["lr"], dim=c["dim"], fused=True)
+            lr=c["lr"], dim=c["dim"])
         plan = {k: (int(v[mesh.shard]) if k in ("ok", "live")
                     else torch.from_numpy(v[mesh.shard]))
                 for k, v in c["plan"].items()}

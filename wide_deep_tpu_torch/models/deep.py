@@ -394,7 +394,7 @@ def deep_input_layer(store: ParamStore, plan: FeaturePlan,
     batch) are gathered from the detached table and become leaf tensors
     that require grad, stored under their key; their gradient is the
     compact per-entry gradient the step hands to optim/sparse's
-    apply_fused_update (fused tables) or apply_compact_update.
+    apply_fused_update.
 
     ``shard``: (mesh, row-sharded param paths) on a mesh of ranks, else
     None."""

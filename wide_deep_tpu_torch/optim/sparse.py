@@ -22,14 +22,7 @@ optimizer.  Each step, per table (``apply_fused_update``):
    the sentinels.
 
 Untouched rows are never read or written (reference SparseApply* semantics).
-
-Tables built by hand with ``fused=False`` keep the param in its own
-layout and the optimizer slots in their state (``init_table_state``):
-``apply_compact_update`` takes the same compact per-entry gradient and
-plan (K1 sums it, the formula runs on the gathered rows, the changes are
-added back at the sorted unique uids), ``apply_sparse_update`` a dense
-per-row-summed gradient and the raw batch ids.  ``plan_sparse_tables``
-makes fused tables only, as the JAX package's does.
+``plan_sparse_tables`` makes every sparse table the step updates.
 """
 
 from __future__ import annotations
@@ -68,8 +61,6 @@ class SparseTable:
     spec: Dict[str, Any]           # optimizer spec
     lr: Union[Schedule, float]     # a schedule, or a constant rate
     dim: int = 0                   # embedding columns
-    fused: bool = False            # param stored as float32 [rows, width]
-    sink_dtype: Any = None         # dtype of the gathered-rows gradient
 
 
 def _lr_at(lr, count: int) -> torch.Tensor:
@@ -127,11 +118,9 @@ def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
     spec = table_spec(model_conf)
     if not enabled or spec["name"] not in SPARSE_CAPABLE:
         return {}, frozenset()
-    from wide_deep_tpu_torch.models.deep import DTYPES
     lr0 = spec.get("learning_rate", model_conf["dnn_initial_learning_rate"])
     schedule = exponential_decay(
         lr0, model_conf.get("dnn_decay_rate", 1.0), decay_steps)
-    sink_dtype = DTYPES[model_conf.get("embedding_dtype") or "float32"]
     out: Dict[str, SparseTable] = {}
     for g in plan.groups:
         if plan.sparse_opt_group(g, batch_size):
@@ -139,7 +128,7 @@ def plan_sparse_tables(plan, model_conf, decay_steps: float, batch_size: int,
             out[name] = SparseTable(
                 name=name, path=("dnn", "embed", f"d{g.dim}"),
                 ids_key=f"emb_ids_d{g.dim}", spec=spec, lr=schedule,
-                dim=g.dim, fused=True, sink_dtype=sink_dtype)
+                dim=g.dim)
     return out, frozenset(t.path for t in out.values())
 
 
@@ -158,8 +147,6 @@ def compact_fused_ckpt(params, sparse_tables: Dict[str, SparseTable]):
     production shapes, Adagrad) with an exact resume.  The views share the
     live tables' storage: a restore into them writes the live tables."""
     for t in (sparse_tables or {}).values():
-        if not t.fused:
-            continue
         p = tree_get(params, t.path)
         used = fused_live_width(t.spec, t.dim)
         if p.shape[1] > used:
@@ -175,8 +162,6 @@ def expand_fused_ckpt(params, sparse_tables: Dict[str, SparseTable], like):
     the result holds the live tables.  A table already at full width
     passes through unchanged."""
     for t in (sparse_tables or {}).values():
-        if not t.fused:
-            continue
         target = tree_get(like, t.path)
         p = tree_get(params, t.path)
         if p.shape == target.shape:
@@ -187,24 +172,6 @@ def expand_fused_ckpt(params, sparse_tables: Dict[str, SparseTable], like):
         target[:, used:].zero_()
         params = tree_set(params, t.path, target)
     return params
-
-
-def init_table_state(table: SparseTable,
-                     param: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-    """A table's optimizer state: its step count, and for a table that is
-    not fused its slots, as the dense optimizers make them (``accum`` at
-    the initial accumulator value, ``linear`` zero, in the param's dtype).
-    A fused table's slots live in its param matrix."""
-    st: Dict[str, Any] = {"count": 0}
-    if table.fused:
-        return st
-    name = table.spec["name"]
-    if name in ("Adagrad", "ProximalAdagrad", "Ftrl"):
-        st["accum"] = torch.full_like(
-            param, table.spec.get("initial_accumulator_value", 0.1))
-    if name == "Ftrl":
-        st["linear"] = torch.zeros_like(param)
-    return st
 
 
 @torch.no_grad()
@@ -396,60 +363,3 @@ def apply_fused_sharded_update(table: SparseTable, fused: torch.Tensor,
             0, mine)))
     state["count"] += 1
     return fused
-
-
-@torch.no_grad()
-def apply_sparse_update(table: SparseTable, param: torch.Tensor,
-                        grad: torch.Tensor, ids: torch.Tensor,
-                        state: Dict[str, Any]) -> torch.Tensor:
-    """Touched-rows update of a table that is not fused, in place, from its
-    dense gradient ``grad`` (already summed per row) and the raw batch
-    ``ids`` (duplicates allowed: each duplicate computes the same new
-    values, so the writes agree)."""
-    lr = _lr_at(table.lr, state["count"])
-    ids = ids.reshape(-1).long()
-    g = grad.index_select(0, ids).float()
-    w = param.index_select(0, ids).float()
-    slots = {k: state[k].index_select(0, ids).float()
-             for k in _SLOT_KEYS if k in state}
-    w_new, new_rows = _row_update(table.spec, lr, w, g, slots)
-    for k, rows in new_rows.items():
-        state[k].index_copy_(0, ids, rows.to(state[k].dtype))
-    param.index_copy_(0, ids, w_new.to(param.dtype))
-    state["count"] += 1
-    return param
-
-
-@torch.no_grad()
-def apply_compact_update(table: SparseTable, param: torch.Tensor,
-                         row_grads: torch.Tensor,
-                         plan: Dict[str, torch.Tensor],
-                         state: Dict[str, Any]) -> torch.Tensor:
-    """Touched-rows update of a table that is not fused, in place, from the
-    compact per-entry gradient ``row_grads`` [N, D] and the batch's compact
-    plan: K1 (ops/scatter.range_scatter_add) sums duplicates into one
-    float32 row per unique id, the formula runs on the gathered rows, and
-    each row's change (new - old, in the slot's or param's dtype) is added
-    back at the sorted unique uids, as the JAX package writes it.  The
-    sentinel uids past the table's rows are dropped."""
-    from wide_deep_tpu_torch.ops.scatter import range_scatter_add
-    lr = _lr_at(table.lr, state["count"])
-    n, d = row_grads.shape
-    g_unique = range_scatter_add(plan["ids"], plan["perm"],
-                                 row_grads.float().contiguous(),
-                                 plan["tiles"], n, torch.float32)
-    uids = plan["uids"]
-    rows = param.shape[0]
-    safe = torch.clamp(uids, 0, rows - 1).long()
-    w = param.index_select(0, safe).float()
-    slots = {k: state[k].index_select(0, safe).float()
-             for k in _SLOT_KEYS if k in state}
-    w_new, new_rows = _row_update(table.spec, lr, w, g_unique, slots)
-    live = (uids >= 0) & (uids < rows)
-    at = safe[live]
-    for k, vals in new_rows.items():
-        state[k].index_add_(0, at, (vals - slots[k]).to(
-            state[k].dtype)[live])
-    param.index_add_(0, at, (w_new - w).to(param.dtype)[live])
-    state["count"] += 1
-    return param

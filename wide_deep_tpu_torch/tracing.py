@@ -217,8 +217,8 @@ def per_step(snap: Dict[str, Any], name: str,
              field: str = "host_s") -> List[float]:
     """Each step's sum of ``field`` over the occurrences of span ``name``
     in ``snap`` (a step: the outermost span open in the thread, so that a
-    phase run twice in one step, as ``train.update`` is under
-    ``defer_sparse``, counts once), leaving out occurrences without it."""
+    phase run twice in one step counts once), leaving out occurrences
+    without it."""
     sums: Dict[int, float] = {}
     for occ in snap["spans"].get(name, ()):
         if occ[field] is not None:
